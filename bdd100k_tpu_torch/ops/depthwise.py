@@ -2,30 +2,34 @@
 bdd100k_tpu/ops/pallas_depthwise.py::depthwise_conv3x3).
 
 Stride 1 — nine of MobileNet's thirteen depthwise layers — runs the
-hand-written CUDA kernel `csrc/depthwise.cu` for a CUDA tensor and the
-plain version below for a CPU tensor; there is no other route. Stride 2
+hand-written CUDA kernels of `csrc/depthwise.cu` for a CUDA tensor and the
+plain versions below for a CPU tensor; there is no other route. Stride 2
 stays a grouped `F.conv2d` with flax's asymmetric SAME pad, as the
 reference keeps XLA for it.
 
-The CUDA kernel replaces `_fwd_pallas` (pallas_depthwise.py:219, body
-`_fwd_kernel`/`_fwd_body`). It is bound by memory: it reads each input
-element once and writes each output once (2·B·H·W·C elements) against
-18 flops per output, far below the card's flop/byte balance, so its bound
-is bytes ÷ 3.35 TB/s. The design keeps every load coalesced — threads run
-along C, two channels a thread (bf16x2 or float2) — and stages each output
-tile's (rows+2)×(cols+2) halo in shared memory once, so the nine taps read
-shared memory rather than device memory.
+The forward kernel replaces `_fwd_pallas` (pallas_depthwise.py:219) and
+the filter-gradient kernel `_fgrad_pallas` (pallas_depthwise.py:242). Both
+are bound by bytes (18 flops per element against 2–4 bytes moved), so
+their bound is bytes ÷ 3.35 TB/s; the source's header says how the design
+meets it. How a shape is cut into work — tile rows and columns, channel
+chunk, rows a thread, persistent blocks, shared memory — is decided here
+alone, by `_plan`, and handed to the C entry points; `_work_items` mirrors
+the kernels' arithmetic over that plan, so the CPU tests can check that
+every output is covered once.
 
 Training differentiates the stride-1 route through `DepthwiseS1`, the
 counterpart of the custom VJP `_dw3x3_s1` (pallas_depthwise.py:266-285):
-dx is the same forward kernel run on the output gradient with the filter
-flipped in both spatial dims, and dk is a second hand-written kernel in
-`csrc/depthwise.cu` (replacing `_fgrad_pallas`, pallas_depthwise.py:242),
-a (3, 3, C) f32 reduction over B·H·W summed in a fixed order. On CPU
+dx is the forward kernel run on the output gradient with the filter
+flipped in both spatial dims, and dk is the filter-gradient kernel, a
+(3, 3, C) f32 reduction over B·H·W in two passes of fixed shape (one
+partial a persistent block, then their sum in a fixed order). On CPU
 tensors the same Function runs the plain versions of both pieces.
 """
 
 from __future__ import annotations
+
+import functools
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -33,11 +37,179 @@ import torch.nn.functional as F
 from bdd100k_tpu_torch.utils import cuda_build
 
 LAUNCHES = {"depthwise3x3_s1": 0, "depthwise3x3_s1_fgrad": 0}
-# blocks of the filter-gradient kernel along (image, tile): enough to fill
-# the card's 132 SMs a few times over, few enough that the second pass
-# over the (parts, 9, C) partials stays small
-_FGRAD_BLOCKS = 1024
-_TILE_H, _TILE_W, _MAX_CB = 8, 16, 64  # csrc/depthwise.cu's tiling
+
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+SMEM_LIMIT = 232_448      # shared memory one block may use (227 KB)
+MAX_THREADS = 256         # csrc/depthwise.cu: __launch_bounds__ (256, 2), so
+MAX_REGS = 128            # a thread holds at most 65536 / (256 · 2) registers
+MAX_STAGES = 4            # csrc/depthwise.cu: the most buffers in the TMA ring
+RING = 128                # csrc/depthwise.cu: the ring's mbarriers, first
+ROWS = (8, 4, 2, 1)       # csrc/depthwise.cu: the rows a thread it is built for
+CHANNEL_ALIGN = 8         # channel chunks, and C, are multiples of this
+FULL_WIDTH = 40           # maps at most this wide are one tile wide
+CHUNK_BYTES = 128         # the most bytes of one pixel a tile takes
+MIN_ITEMS = 2 * SMS       # work items to leave, where the shape has them
+MAX_BLOCKS_PER_SM = 4
+STAGES = {"fwd": 2, "fgrad": 3}  # the ring's depth, per kernel
+
+
+def _r128(n: int) -> int:
+    return -(-n // 128) * 128
+
+
+@dataclass(frozen=True)
+class Plan:
+    """One launch of a kernel of csrc/depthwise.cu over (b, h, w, c).
+
+    A work item is a tile of th × tw outputs and cb channels; a thread owns
+    `vec` channels, one column and `rows` rows of it. Block (p, chunk) of
+    the (parts, chunks) grid takes the spatial items [p·n/parts,
+    (p+1)·n/parts) of its chunk, n = b · bands · coltiles."""
+
+    kernel: str          # "fwd" (forward and dx) or "fgrad" (dk's first pass)
+    b: int
+    h: int
+    w: int
+    c: int
+    itemsize: int
+    vec: int
+    cb: int
+    tw: int
+    th: int
+    rows: int
+    stages: int
+    parts: int
+    smem: int
+
+    @property
+    def chunks(self) -> int:
+        return -(-self.c // self.cb)
+
+    @property
+    def strips(self) -> int:
+        return self.th // self.rows
+
+    @property
+    def threads(self) -> int:
+        return self.cb // self.vec * self.tw * self.strips
+
+    @property
+    def bands(self) -> int:
+        return -(-self.h // self.th)
+
+    @property
+    def coltiles(self) -> int:
+        return -(-self.w // self.tw)
+
+    @property
+    def n_spatial(self) -> int:
+        return self.b * self.bands * self.coltiles
+
+    @property
+    def boxes(self) -> list[tuple[int, int, int, int]]:
+        """The TMA boxes a stage loads, innermost dim first: the x halo,
+        and for dk also the g tile."""
+        halo = (self.cb, self.tw + 2, self.th + 2, 1)
+        return [halo] if self.kernel == "fwd" else [halo, (self.cb, self.tw, self.th, 1)]
+
+
+def _smem(kernel: str, tw: int, th: int, cb: int, itemsize: int,
+          threads: int, stages: int) -> int:
+    """Bytes of dynamic shared memory: RING for the mbarriers, then `stages`
+    ring buffers (each box rounded to 128 bytes); for dk, at least the
+    block's (threads, 9, 16 bytes of channels) f32 sums, which reuse the
+    ring."""
+    stage = _r128((th + 2) * (tw + 2) * cb * itemsize)
+    if kernel == "fwd":
+        return RING + stages * stage
+    stage += _r128(th * tw * cb * itemsize)
+    return RING + max(stages * stage, threads * 9 * 16 // itemsize * 4)
+
+
+def _blocks_per_sm(smem: int, threads: int) -> int:
+    """Blocks of `threads` threads and `smem` bytes that fit on one SM at
+    once: shared memory, threads, registers at the launch bound's cap, at
+    most MAX_BLOCKS_PER_SM."""
+    regs = -(-threads // 32) * 32 * MAX_REGS
+    return max(1, min(SMEM_LIMIT // smem, 2048 // threads, 65536 // regs,
+                      MAX_BLOCKS_PER_SM))
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(b: int, h: int, w: int, c: int, itemsize: int,
+          kernel: str = "fwd") -> Plan:
+    """The launch plan of `kernel` over x (b, h, w, c) of `itemsize`-byte
+    elements (C a multiple of 8). Chosen from a sweep of plans on the H100
+    (PERF.md):
+    * tiles as wide as the map where W ≤ 40 (no half-empty tiles on the
+      38², 19² and 10² maps), else W split evenly into tiles of ≤ 32;
+    * a channel chunk of ≤ 128 bytes a pixel and ≤ MAX_THREADS threads over
+      one tile row, one that divides C where that costs less than half of
+      it, or half that chunk;
+    * of those chunks and the tile rows that leave min(2·132, the most any
+      plan gives) work items, the plan that pads least — padded rows ×
+      padded channels × (rows + 2) / rows, each thread reading two halo
+      rows — then has the most threads a block (warps hide the latency),
+      the widest chunk, the fewest rows loaded (bands × (th + 2)) and the
+      most rows a thread;
+    * persistent blocks: the forward no more than fit on the card at once
+      (`_blocks_per_sm`), so no block waits for a second wave; the filter
+      gradient one an SM, so the partials and each block's closing
+      reduction stay few."""
+    vec = 16 // itemsize
+    tw = w if w <= FULL_WIDTH else -(-w // -(-w // 32))
+    cg = min(CHUNK_BYTES // itemsize // vec, MAX_THREADS // tw)
+    cap = min(c, max(CHANNEL_ALIGN, cg * vec // CHANNEL_ALIGN * CHANNEL_ALIGN))
+    # the largest chunk that divides C, unless that is under half the cap;
+    # and half of it, which may let more thread strips fit in a block
+    cb = next(d for d in range(cap, 0, -CHANNEL_ALIGN) if c % d == 0)
+    cb = cb if 2 * cb >= cap else cap
+    widths = {cb} | ({cb // 2} if cb % (2 * CHANNEL_ALIGN) == 0 else set())
+    coltiles = -(-w // tw)
+    shapes = [(cb, r, s) for cb in widths for r in ROWS
+              for s in range(1, min(MAX_THREADS // (cb // vec * tw), 254 // r) + 1)
+              if (s - 1) * r < h]  # no strip wholly below the map
+
+    def items(sh):
+        cb, r, s = sh
+        return b * -(-h // (r * s)) * coltiles * -(-c // cb)
+
+    def cost(sh):
+        cb, r, s = sh
+        th = r * s
+        bands = -(-h // th)
+        padded = bands * th * -(-c // cb) * cb / c
+        return (padded * (r + 2) / r, -(cb // vec * tw * s), -cb,
+                bands * (th + 2), -r)
+
+    enough = min(MIN_ITEMS, max(map(items, shapes)))
+    cb, rows, strips = min((sh for sh in shapes if items(sh) >= enough), key=cost)
+    th = rows * strips
+    chunks = -(-c // cb)
+    threads = cb // vec * tw * strips
+    stages = STAGES[kernel]
+    smem = _smem(kernel, tw, th, cb, itemsize, threads, stages)
+    n_spatial = b * -(-h // th) * coltiles
+    per_sm = _blocks_per_sm(smem, threads) if kernel == "fwd" else 1
+    parts = max(1, min(n_spatial, SMS * per_sm // chunks))
+    return Plan(kernel, b, h, w, c, itemsize, vec, cb, tw, th, rows, stages,
+                parts, smem)
+
+
+def _work_items(plan: Plan) -> dict[tuple[int, int], list[tuple[int, int, int, int]]]:
+    """Block (p, chunk) → its work items (image, i0, j0, c0) in order, as
+    the kernels of csrc/depthwise.cu compute them (`Tiling::item`)."""
+    n, per_image = plan.n_spatial, plan.bands * plan.coltiles
+    out = {}
+    for ch in range(plan.chunks):
+        for p in range(plan.parts):
+            items = []
+            for s in range(p * n // plan.parts, (p + 1) * n // plan.parts):
+                b, r = divmod(s, per_image)
+                band, ct = divmod(r, plan.coltiles)
+                items.append((b, band * plan.th, ct * plan.tw, ch * plan.cb))
+            out[(p, ch)] = items
+    return out
 
 
 def depthwise3x3_s1_plain(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
@@ -70,7 +242,8 @@ def depthwise3x3_s1_fgrad_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tenso
 def _check_nhwc_pair(name: str, x: torch.Tensor, other: torch.Tensor,
                      other_shape: tuple) -> None:
     """What the kernels of csrc/depthwise.cu take: CUDA tensors of one
-    type, f32 or bf16, contiguous, an even C, channel pairs aligned."""
+    type, f32 or bf16, contiguous NHWC, C a multiple of 8, 16-byte-aligned
+    base pointers (TMA and 16-byte vector loads)."""
     if not x.is_cuda or not other.is_cuda:
         raise ValueError(f"{name} needs CUDA tensors")
     if x.dtype not in (torch.float32, torch.bfloat16) or other.dtype != x.dtype:
@@ -85,54 +258,68 @@ def _check_nhwc_pair(name: str, x: torch.Tensor, other: torch.Tensor,
         )
     if not x.is_contiguous() or not other.is_contiguous():
         raise ValueError(f"{name} needs contiguous NHWC tensors")
-    if x.shape[-1] % 2:
-        raise ValueError(f"{name} needs an even C, got {x.shape[-1]}")
-    if (x.data_ptr() | other.data_ptr()) % (2 * x.element_size()):
-        raise ValueError(f"{name} loads channel pairs: its tensors must be "
-                         "aligned to two elements")
+    if x.shape[-1] % CHANNEL_ALIGN:
+        raise ValueError(f"{name} needs C a multiple of {CHANNEL_ALIGN}, "
+                         f"got {x.shape[-1]}")
+    if (x.data_ptr() | other.data_ptr()) % 16:
+        raise ValueError(f"{name} needs 16-byte-aligned tensors")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def depthwise3x3_s1_cuda(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel: x (B, H, W, C) contiguous bf16 or f32 on the card,
-    k (3, 3, C) of the same type → (B, H, W, C) of that type."""
+    """The forward kernel: x (B, H, W, C) contiguous bf16 or f32 on the
+    card, k (3, 3, C) of the same type → (B, H, W, C) of that type."""
     _check_nhwc_pair("depthwise3x3_s1_cuda", x, k, (3, 3, x.shape[-1]))
     b, h, w, c = x.shape
+    plan = _plan(b, h, w, c, x.element_size())
     lib = cuda_build.kernel_library("depthwise")
     out = torch.empty_like(x)
     fn = lib.dw3x3_s1_bf16 if x.dtype == torch.bfloat16 else lib.dw3x3_s1_f32
-    err = fn(
-        x.data_ptr(), k.data_ptr(), out.data_ptr(), b, h, w, c,
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    err = fn(x.data_ptr(), k.data_ptr(), out.data_ptr(), b, h, w, c, plan.tw,
+             plan.th, plan.rows, plan.cb, plan.stages, plan.parts, plan.smem,
+             _stream(x))
     cuda_build.check(err, "depthwise3x3_s1")
     LAUNCHES["depthwise3x3_s1"] += 1
     return out
 
 
-def _fgrad_parts(b: int, h: int, w: int, c: int) -> int:
-    """Blocks along (image, tile) of the filter-gradient kernel: its grid's
-    second dim and the first dim of its (parts, 9, C) partials."""
-    tiles = -(-h // _TILE_H) * -(-w // _TILE_W)
-    chunks = -(-c // min(c, _MAX_CB))
-    return max(1, min(b * tiles, _FGRAD_BLOCKS // chunks))
+def fgrad_partials_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """dk's first pass: x, g (B, H, W, C) contiguous, of one type (bf16 or
+    f32) on the card → (parts, 9, C) f32, one row of partial sums a
+    persistent block."""
+    _check_nhwc_pair("depthwise3x3_s1_fgrad_cuda", x, g, tuple(x.shape))
+    b, h, w, c = x.shape
+    plan = _plan(b, h, w, c, x.element_size(), "fgrad")
+    part = torch.empty((plan.parts, 9, c), dtype=torch.float32, device=x.device)
+    lib = cuda_build.kernel_library("depthwise")
+    fn = (lib.dw3x3_s1_fgrad_bf16 if x.dtype == torch.bfloat16
+          else lib.dw3x3_s1_fgrad_f32)
+    err = fn(x.data_ptr(), g.data_ptr(), part.data_ptr(), b, h, w, c, plan.tw,
+             plan.th, plan.rows, plan.cb, plan.stages, plan.parts, plan.smem,
+             _stream(x))
+    cuda_build.check(err, "depthwise3x3_s1_fgrad")
+    return part
+
+
+def fgrad_sum_cuda(part: torch.Tensor) -> torch.Tensor:
+    """dk's second pass: (parts, 9, C) f32 on the card → dk (3, 3, C) f32,
+    summed over the parts in a fixed order."""
+    parts, _, c = part.shape
+    dk = torch.empty((3, 3, c), dtype=torch.float32, device=part.device)
+    lib = cuda_build.kernel_library("depthwise")
+    err = lib.dw3x3_s1_fgrad_sum(part.data_ptr(), dk.data_ptr(), parts, c,
+                                 _stream(part))
+    cuda_build.check(err, "depthwise3x3_s1_fgrad_sum")
+    return dk
 
 
 def depthwise3x3_s1_fgrad_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """The filter-gradient kernel: x, g (B, H, W, C) contiguous, of one type
-    (bf16 or f32) on the card → dk (3, 3, C) f32."""
-    _check_nhwc_pair("depthwise3x3_s1_fgrad_cuda", x, g, tuple(x.shape))
-    b, h, w, c = x.shape
-    parts = _fgrad_parts(b, h, w, c)
-    part = torch.empty((parts, 9, c), dtype=torch.float32, device=x.device)
-    dk = torch.empty((3, 3, c), dtype=torch.float32, device=x.device)
-    lib = cuda_build.kernel_library("depthwise")
-    fn = (lib.dw3x3_s1_fgrad_bf16 if x.dtype == torch.bfloat16
-          else lib.dw3x3_s1_fgrad_f32)
-    err = fn(
-        x.data_ptr(), g.data_ptr(), part.data_ptr(), dk.data_ptr(),
-        b, h, w, c, parts, torch.cuda.current_stream(x.device).cuda_stream,
-    )
-    cuda_build.check(err, "depthwise3x3_s1_fgrad")
+    (bf16 or f32) on the card → dk (3, 3, C) f32, the same bits every run."""
+    dk = fgrad_sum_cuda(fgrad_partials_cuda(x, g))
     LAUNCHES["depthwise3x3_s1_fgrad"] += 1
     return dk
 

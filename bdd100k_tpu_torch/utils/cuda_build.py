@@ -25,18 +25,21 @@ BUILD_DIR = _PKG / "_build"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # per-source extra flags; the NMS and matcher IoUs must round exactly like
-# the f32 reference, so their builds also forbid FMA contraction
-_EXTRA_FLAGS = {"nms": ["-fmad=false"], "matcher": ["-fmad=false"]}
+# the f32 reference, so their builds also forbid FMA contraction; ptxas
+# reports the depthwise kernels' registers, shared memory and spills
+_EXTRA_FLAGS = {"nms": ["-fmad=false"], "matcher": ["-fmad=false"],
+                "depthwise": ["-Xptxas", "-v"]}
 
 # name → (C entry points and their argument types)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
     "nms": {"greedy_suppress": [_P, _P, _P, _I, _I, _F, _P]},
-    "depthwise": {
-        "dw3x3_s1_f32": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "dw3x3_s1_bf16": [_P, _P, _P, _I, _I, _I, _I, _P],
-        "dw3x3_s1_fgrad_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-        "dw3x3_s1_fgrad_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "depthwise": {  # pointers, (B, H, W, C), the plan, the stream
+        "dw3x3_s1_f32": [_P, _P, _P] + [_I] * 11 + [_P],
+        "dw3x3_s1_bf16": [_P, _P, _P] + [_I] * 11 + [_P],
+        "dw3x3_s1_fgrad_f32": [_P, _P, _P] + [_I] * 11 + [_P],
+        "dw3x3_s1_fgrad_bf16": [_P, _P, _P] + [_I] * 11 + [_P],
+        "dw3x3_s1_fgrad_sum": [_P, _P, _I, _I, _P],
     },
     "matcher": {
         "encode_targets": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
@@ -45,6 +48,8 @@ SIGNATURES = {
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
+# name → what nvcc printed on the build this process made (ptxas -v)
+BUILD_LOGS: dict[str, str] = {}
 _lock = threading.Lock()
 
 
@@ -98,6 +103,7 @@ def _finish_build(name: str, job) -> None:
             + stdout.decode(errors="replace")
         )
     os.replace(tmp, out)
+    BUILD_LOGS[name] = stderr.decode(errors="replace") + stdout.decode(errors="replace")
 
 
 def _load(name: str) -> ctypes.CDLL:
@@ -133,7 +139,13 @@ def kernel_library(name: str) -> ctypes.CDLL:
     return lib
 
 
+# codes of the C entry points beside cudaError_t (csrc/depthwise.cu)
+_OWN_ERRORS = {-1: "the TMA tensor map could not be encoded",
+               -2: "the kernel refused its launch plan"}
+
+
 def check(err: int, what: str) -> None:
-    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    """Raise on a non-zero code returned by a C entry point."""
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA error {err} at launch")
+        raise RuntimeError(f"{what}: {_OWN_ERRORS.get(err, f'CUDA error {err}')} "
+                           "at launch")

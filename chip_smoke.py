@@ -58,28 +58,9 @@ def time_ms(torch, fn) -> float:
     """Device time of one call of fn, in ms: INNER calls are captured in a
     CUDA graph, so the host's launch overhead is out of the measurement,
     and the median over REPS replays (CUDA events) is divided by INNER."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):  # warm-up off the capture, as graphs need
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(INNER):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(REPS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end) / INNER)
-    return float(np.median(times))
+    from bdd100k_tpu_torch.utils.timing import graph_time_ms
+
+    return graph_time_ms(fn, REPS, INNER)
 
 
 # ------------------------------------------------------------------ NMS
@@ -181,6 +162,12 @@ DW_SHAPES = (("ds1", 1, 150, 32), ("ds3", 1, 75, 128), ("ds5", 1, 38, 256),
              ("ds7-11", 5, 19, 512), ("ds13", 1, 10, 1024))
 DW_BATCH = 8
 BF16_RTOL = 2.0 ** -7   # one bf16 ulp of the output
+# held against the plain versions too, untimed: one-pixel maps, ragged
+# bands and tiles, chunks that do not divide C, and the depthwise shapes
+# of ssd_tiny_64 / yolo_tiny_64 (64² input, width 0.25)
+DW_EDGE_SHAPES = ((2, 1, 1, 8), (3, 2, 3, 16), (2, 5, 7, 24), (1, 19, 19, 8),
+                  (2, 33, 17, 40), (4, 32, 32, 8), (4, 16, 16, 32),
+                  (4, 8, 8, 64), (4, 4, 4, 128), (4, 2, 2, 256))
 
 
 def dw_bound_ms(b, h, w, c, itemsize) -> tuple[float, str]:
@@ -191,36 +178,54 @@ def dw_bound_ms(b, h, w, c, itemsize) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def check_dw_forward(torch, dw, x32, k32, what: str) -> tuple[float, float, float]:
+    """The forward kernel against its plain version on the same inputs, f32
+    and bf16 → (f32 max|Δ|, its tolerance, bf16 max|Δ| against the plain
+    bf16 version); raises beyond tolerance."""
+    # f32: max|Δ| ≤ 1e-5·max|ref|
+    y32 = dw.depthwise3x3_s1_cuda(x32, k32)
+    ref32 = dw.depthwise3x3_s1_plain(x32, k32)
+    err32 = float((y32 - ref32).abs().max())
+    tol32 = 1e-5 * float(ref32.abs().max())
+    if not err32 <= tol32:
+        raise AssertionError(f"depthwise f32 {what}: max|Δ| {err32} > {tol32}")
+    # bf16: against the f32 plain result on the same bf16 inputs, within
+    # one bf16 ulp of the output (rtol 2^-7); the 1e-5·max|ref| floor
+    # covers outputs that cancel to near zero, where f32 order matters
+    xb, kb = x32.to(torch.bfloat16), k32.to(torch.bfloat16)
+    yb = dw.depthwise3x3_s1_cuda(xb, kb)
+    refb = dw.depthwise3x3_s1_plain(xb.float(), kb.float())
+    excess = ((yb.float() - refb).abs()
+              - (BF16_RTOL * refb.abs() + 1e-5 * refb.abs().max()))
+    if float(excess.max()) > 0:
+        raise AssertionError(f"depthwise bf16 {what}: beyond one ulp by "
+                             f"{float(excess.max())}")
+    plainb = dw.depthwise3x3_s1_plain(xb, kb)
+    return err32, tol32, float((yb.float() - plainb.float()).abs().max())
+
+
 def phase_kernel_depthwise(torch, dw) -> dict:
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                   max_abs_err=0.0)
+    edge_err = 0.0
+    for shape in DW_EDGE_SHAPES:
+        x32 = torch.randn(shape, generator=gen, device="cuda")
+        k32 = torch.randn((3, 3, shape[-1]), generator=gen, device="cuda") * 0.3
+        _, _, errb = check_dw_forward(torch, dw, x32, k32, f"edge {shape}")
+        edge_err = max(edge_err, errb)
+    emit("kernel_depthwise_edges", shapes=[list(s) for s in DW_EDGE_SHAPES],
+         dtypes=["f32", "bf16"], within_tolerance=True,
+         bf16_max_abs_err_vs_plain_bf16=edge_err)
+    totals["max_abs_err"] = edge_err
     for name, layers, hw, c in DW_SHAPES:
         launched = dw.LAUNCHES["depthwise3x3_s1"]
         x32 = torch.randn((DW_BATCH, hw, hw, c), generator=gen, device="cuda")
         k32 = torch.randn((3, 3, c), generator=gen, device="cuda") * 0.3
-        # f32: the plain version on the same inputs, max|Δ| ≤ 1e-5·max|ref|
-        y32 = dw.depthwise3x3_s1_cuda(x32, k32)
-        ref32 = dw.depthwise3x3_s1_plain(x32, k32)
-        err32 = float((y32 - ref32).abs().max())
-        tol32 = 1e-5 * float(ref32.abs().max())
-        if not err32 <= tol32:
-            raise AssertionError(f"depthwise f32 {name}: max|Δ| {err32} > {tol32}")
-        # bf16: against the f32 plain result on the same bf16 inputs, within
-        # one bf16 ulp of the output (rtol 2^-7); the 1e-5·max|ref| floor
-        # covers outputs that cancel to near zero, where f32 order matters
+        err32, tol32, errb = check_dw_forward(torch, dw, x32, k32, name)
         xb, kb = x32.to(torch.bfloat16), k32.to(torch.bfloat16)
-        yb = dw.depthwise3x3_s1_cuda(xb, kb)
-        refb = dw.depthwise3x3_s1_plain(xb.float(), kb.float())
-        excess = ((yb.float() - refb).abs()
-                  - (BF16_RTOL * refb.abs() + 1e-5 * refb.abs().max()))
-        if float(excess.max()) > 0:
-            raise AssertionError(f"depthwise bf16 {name}: beyond one ulp by "
-                                 f"{float(excess.max())}")
-        plainb = dw.depthwise3x3_s1_plain(xb, kb)
-        errb = float((yb.float() - plainb.float()).abs().max())
         row = {}
         for dtype, x, k in (("bf16", xb, kb), ("f32", x32, k32)):
             xn = x.permute(0, 3, 1, 2)                      # channels_last view
@@ -230,17 +235,27 @@ def phase_kernel_depthwise(torch, dw) -> dict:
             lib_ms = time_ms(torch, lambda: F.conv2d(xn, wn, None, 1, 1, 1, c))
             bound, by = dw_bound_ms(DW_BATCH, hw, hw, c, x.element_size())
             row[dtype] = dict(kernel_ms=ms, plain_ms=plain_ms,
-                              library_ms=lib_ms, bound_ms=bound, bound_by=by)
+                              library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                              kernel_over_bound=ms / bound,
+                              kernel_over_library=ms / lib_ms)
         for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
             src = "kernel_ms" if key == "ms" else key
             totals[key] += layers * row["bf16"][src]
         totals["max_abs_err"] = max(totals["max_abs_err"], errb)
+        plan = dw._plan(DW_BATCH, hw, hw, c, 2)
         emit("kernel_depthwise", layer=name, layers=layers,
              shape=[DW_BATCH, hw, hw, c], f32_max_abs_err=err32,
              f32_tol=tol32, bf16_max_abs_err_vs_plain_bf16=errb,
              bf16_within_one_ulp=True,
-             launches=dw.LAUNCHES["depthwise3x3_s1"] - launched, **row)
+             launches=dw.LAUNCHES["depthwise3x3_s1"] - launched,
+             bf16_plan=plan_fields(plan), **row)
     return totals
+
+
+def plan_fields(plan) -> dict:
+    return dict(tw=plan.tw, th=plan.th, rows=plan.rows, cb=plan.cb,
+                threads=plan.threads, chunks=plan.chunks, parts=plan.parts,
+                items=plan.n_spatial * plan.chunks, smem=plan.smem)
 
 
 def dw_bwd_bound_ms(b, h, w, c, itemsize) -> tuple[float, str]:
@@ -257,58 +272,89 @@ BWD_BATCH = 32       # the train step's batch
 DK_RTOL = 2e-5       # of max|dk|: B·H·W f32 products summed in another order
 
 
+def check_dw_backward(torch, dw, x32, g32, k32, what: str) -> dict:
+    """dx (the forward kernel on g with the filter flipped) and dk against
+    their plain versions on the same inputs, bf16 and f32, and dk the same
+    bits on a second call → per type {dx_max_abs_err, dx_tol,
+    dk_max_abs_err, dk_tol}; raises beyond tolerance."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        x, g, k = x32.to(dtype), g32.to(dtype), k32.to(dtype)
+        kf = k.flip(0, 1).contiguous()
+        dx = dw.depthwise3x3_s1_cuda(g, kf)
+        dk = dw.depthwise3x3_s1_fgrad_cuda(x, g)
+        dk_again = dw.depthwise3x3_s1_fgrad_cuda(x, g)
+        # plain versions on the same inputs, in f32
+        dx_ref = dw.depthwise3x3_s1_plain(g.float(), kf.float())
+        dk_ref = dw.depthwise3x3_s1_fgrad_plain(x, g)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            dx_tol = 1e-5 * float(dx_ref.abs().max())
+            dx_err = float((dx - dx_ref).abs().max())
+            ok = dx_err <= dx_tol
+        else:  # one bf16 ulp of the output, as the forward's check
+            excess = ((dx.float() - dx_ref).abs()
+                      - (BF16_RTOL * dx_ref.abs() + 1e-5 * dx_ref.abs().max()))
+            dx_err = float((dx.float() - dx_ref).abs().max())
+            dx_tol = None
+            ok = float(excess.max()) <= 0
+        if not ok:
+            raise AssertionError(f"dx {tag} {what}: max|Δ| {dx_err}")
+        dk_err = float((dk - dk_ref).abs().max())
+        dk_tol = DK_RTOL * float(dk_ref.abs().max())
+        if not dk_err <= dk_tol:
+            raise AssertionError(f"dk {tag} {what}: max|Δ| {dk_err} > {dk_tol}")
+        if not torch.equal(dk, dk_again):
+            raise AssertionError(f"dk {tag} {what}: two calls differ")
+        out[tag] = dict(dx_max_abs_err=dx_err, dx_tol=dx_tol,
+                        dk_max_abs_err=dk_err, dk_tol=dk_tol)
+    return out
+
+
 def phase_kernel_depthwise_bwd(torch, dw) -> dict:
-    """dx (the forward kernel on g with the filter flipped) and dk (the
-    filter-gradient kernel) against their plain versions at the nine
-    stride-1 layer shapes, B=32, bf16 and f32; times in bf16, the main
-    path's type, with cuDNN's grouped conv (dx) and its weight gradient
-    `torch.nn.grad.conv2d_weight` (dk) as the library yardsticks."""
+    """dx and dk against their plain versions at the nine stride-1 layer
+    shapes, B=32, and at the edge shapes, bf16 and f32, dk the same bits
+    on two calls; times in bf16, the main path's type, with cuDNN's
+    grouped conv (dx) and its weight gradient `torch.nn.grad.conv2d_weight`
+    (dk) as the library yardsticks, and dk's two passes timed apart."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     totals = {"dx": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0),
-              "dk": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0),
+              "dk": dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                         partials_ms=0.0, sum_ms=0.0),
               "max_abs_err": 0.0}
+    edge_err = 0.0
+    for shape in DW_EDGE_SHAPES:
+        x32, g32 = (torch.randn(shape, generator=gen, device="cuda") for _ in range(2))
+        k32 = torch.randn((3, 3, shape[-1]), generator=gen, device="cuda") * 0.3
+        errs = check_dw_backward(torch, dw, x32, g32, k32, f"edge {shape}")
+        edge_err = max(edge_err, *(e["dk_max_abs_err"] for e in errs.values()))
+    emit("kernel_depthwise_bwd_edges", shapes=[list(s) for s in DW_EDGE_SHAPES],
+         dtypes=["bf16", "f32"], within_tolerance=True, dk_bit_equal_twice=True,
+         dk_max_abs_err=edge_err)
+    totals["max_abs_err"] = edge_err
     for name, layers, hw, c in DW_SHAPES:
         b = BWD_BATCH
         x32 = torch.randn((b, hw, hw, c), generator=gen, device="cuda")
         g32 = torch.randn((b, hw, hw, c), generator=gen, device="cuda")
         k32 = torch.randn((3, 3, c), generator=gen, device="cuda") * 0.3
-        row = {}
-        for dtype in (torch.bfloat16, torch.float32):
-            tag = "bf16" if dtype == torch.bfloat16 else "f32"
+        row = check_dw_backward(torch, dw, x32, g32, k32, name)
+        for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             x, g, k = x32.to(dtype), g32.to(dtype), k32.to(dtype)
             kf = k.flip(0, 1).contiguous()
-            dx = dw.depthwise3x3_s1_cuda(g, kf)
-            dk = dw.depthwise3x3_s1_fgrad_cuda(x, g)
-            # plain versions on the same inputs, in f32
-            dx_ref = dw.depthwise3x3_s1_plain(g.float(), kf.float())
-            dk_ref = dw.depthwise3x3_s1_fgrad_plain(x, g)
-            torch.cuda.synchronize()
-            if dtype == torch.float32:
-                dx_tol = 1e-5 * float(dx_ref.abs().max())
-                dx_err = float((dx - dx_ref).abs().max())
-                ok = dx_err <= dx_tol
-            else:  # one bf16 ulp of the output, as the forward's check
-                excess = ((dx.float() - dx_ref).abs()
-                          - (BF16_RTOL * dx_ref.abs() + 1e-5 * dx_ref.abs().max()))
-                dx_err = float((dx.float() - dx_ref).abs().max())
-                dx_tol = None
-                ok = float(excess.max()) <= 0
-            if not ok:
-                raise AssertionError(f"dx {tag} {name}: max|Δ| {dx_err}")
-            dk_err = float((dk - dk_ref).abs().max())
-            dk_tol = DK_RTOL * float(dk_ref.abs().max())
-            if not dk_err <= dk_tol:
-                raise AssertionError(f"dk {tag} {name}: max|Δ| {dk_err} > {dk_tol}")
-            totals["max_abs_err"] = max(totals["max_abs_err"], dk_err)
+            totals["max_abs_err"] = max(totals["max_abs_err"], row[tag]["dk_max_abs_err"])
             times = dict(
                 dx_ms=time_ms(torch, lambda: dw.depthwise3x3_s1_cuda(g, kf)),
                 dk_ms=time_ms(torch, lambda: dw.depthwise3x3_s1_fgrad_cuda(x, g)))
             if dtype == torch.bfloat16:
+                part = dw.fgrad_partials_cuda(x, g)
                 xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
                 wf = kf.permute(2, 0, 1).unsqueeze(1).contiguous()
                 times.update(
+                    dk_partials_ms=time_ms(torch, lambda: dw.fgrad_partials_cuda(x, g)),
+                    dk_sum_ms=time_ms(torch, lambda: dw.fgrad_sum_cuda(part)),
                     dx_plain_ms=time_ms(torch, lambda: dw.depthwise3x3_s1_plain(g, kf)),
                     dk_plain_ms=time_ms(
                         torch, lambda: dw.depthwise3x3_s1_fgrad_plain(x, g)),
@@ -325,13 +371,42 @@ def phase_kernel_depthwise_bwd(torch, dw) -> dict:
                     t["plain_ms"] += layers * times[f"{piece}_plain_ms"]
                     t["library_ms"] += layers * times[f"{piece}_library_ms"]
                     t["bound_ms"] += layers * bnd
-                times.update(dx_bound_ms=fwd_bound, dk_bound_ms=bound, bound_by=by)
-            row[tag] = dict(dx_max_abs_err=dx_err, dx_tol=dx_tol, dk_max_abs_err=dk_err,
-                            dk_tol=dk_tol, **times)
+                    times[f"{piece}_over_bound"] = times[f"{piece}_ms"] / bnd
+                    times[f"{piece}_over_library"] = (times[f"{piece}_ms"]
+                                                      / times[f"{piece}_library_ms"])
+                totals["dk"]["partials_ms"] += layers * times["dk_partials_ms"]
+                totals["dk"]["sum_ms"] += layers * times["dk_sum_ms"]
+                times.update(dx_bound_ms=fwd_bound, dk_bound_ms=bound, bound_by=by,
+                             dx_plan=plan_fields(dw._plan(b, hw, hw, c, 2)),
+                             dk_plan=plan_fields(dw._plan(b, hw, hw, c, 2, "fgrad")))
+            row[tag].update(times)
         emit("kernel_depthwise_bwd", layer=name, layers=layers,
              shape=[b, hw, hw, c], dx_tolerance="f32: 1e-5·max|ref|; bf16: one "
-             "bf16 ulp of the output", dk_tolerance=f"{DK_RTOL}·max|ref|", **row)
+             "bf16 ulp of the output", dk_tolerance=f"{DK_RTOL}·max|ref|",
+             dk_bit_equal_twice=True, **row)
     return totals
+
+
+def ptxas_report(log: str) -> list[dict]:
+    """Per kernel of a `-Xptxas -v` build log: registers, shared memory
+    (static bytes) and spill bytes."""
+    import re
+
+    out, name, spill = [], None, {}
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name, spill = m.group(1), {}
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            spill = dict(spill_stores=int(m.group(1)), spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and name:
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(dict(kernel=name, registers=int(m.group(1)),
+                            static_smem=int(smem.group(1)) if smem else 0, **spill))
+            name = None
+    return out
 
 
 # -------------------------------------------------------------- matcher
@@ -876,7 +951,7 @@ def phase_train_bf16(torch, dw, matcher) -> dict:
 
 # kernel-name substrings → the layer that launched them
 PROFILE_BUCKETS = (
-    ("port kernels", ("dw3x3_s1", "sum_parts", "match_phase")),
+    ("port kernels", ("dw3x3_s1", "match_phase")),
     ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "wgrad",
                              "dgrad", "fprop", "nhwc", "nchw")),
     ("matmul", ("gemm", "cutlass", "sm90")),
@@ -1008,7 +1083,8 @@ def main() -> int:
     t0 = time.perf_counter()
     libs = cuda_build.build_all()
     emit("build", seconds=time.perf_counter() - t0,
-         libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()})
+         libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()},
+         depthwise_ptxas=ptxas_report(cuda_build.BUILD_LOGS.get("depthwise", "")))
 
     # phases 3-6: each kernel against its plain version
     nms_t = phase_kernel_nms(torch, nms)
@@ -1068,6 +1144,7 @@ def main() -> int:
     ]
     emit("done", seconds=time.perf_counter() - t_start,
          depthwise_dx_b32_bf16=bwd_t["dx"],
+         depthwise_dk_b32_bf16=bwd_t["dk"],
          note="kernel ms: NMS at B=8 C=10 K=100; depthwise forward summed over "
               "the 9 stride-1 layers at B=8 bf16, filter gradient at B=32 bf16; "
               "matcher at B=32 M=100 A=8732; launches: depthwise3x3_s1 = 4608 "

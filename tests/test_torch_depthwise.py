@@ -158,3 +158,93 @@ def test_backward_takes_a_non_contiguous_gradient():
         grads.append((xt.grad, kt.grad))
     torch.testing.assert_close(grads[0][0], grads[1][0], rtol=0, atol=0)
     torch.testing.assert_close(grads[0][1], grads[1][1], rtol=0, atol=0)
+
+
+# ------------------------------------------------- the kernels' launch plan
+# csrc/depthwise.cu cannot run here; what surrounds it — how `_plan` cuts a
+# shape into work and what each block of the kernels takes
+# (`_work_items`, the Python mirror of `Tiling::item`) — is checked at the
+# main path's shapes, the tiny configs' and edge shapes.
+
+# the stride-1 layers of SSD-MobileNet-300 at width 1.0 (H = W, C), at the
+# serving batch 8 and the train batch 32
+FLAGSHIP = [(b, hw, hw, c) for b in (8, 32)
+            for hw, c in ((150, 32), (75, 128), (38, 256), (19, 512), (10, 1024))]
+# ssd_tiny_64 / yolo_tiny_64: 64² input, width 0.25
+TINY = [(4, hw, hw, c) for hw, c in ((32, 8), (16, 32), (8, 64), (4, 128), (2, 256))]
+# one-pixel maps, ragged bands and tiles, chunks that do not divide C
+EDGE = [(2, 1, 1, 8), (3, 2, 3, 16), (2, 5, 7, 24), (1, 19, 19, 8), (2, 33, 17, 40)]
+PLAN_SHAPES = FLAGSHIP + TINY + EDGE
+PLAN_IDS = ["x".join(map(str, s)) for s in PLAN_SHAPES]
+
+
+def _plans(shape):
+    for kernel in ("fwd", "fgrad"):
+        for itemsize in (2, 4):
+            yield depthwise._plan(*shape, itemsize, kernel)
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=PLAN_IDS)
+def test_plan_covers_every_output_once(shape):
+    """Every output (b, i, j, 8-channel group) lies in exactly one work
+    item of one block, for both kernels and both types."""
+    b, h, w, c = shape
+    for plan in _plans(shape):
+        count = np.zeros((b, h, w, c // 8), np.int32)
+        for items in depthwise._work_items(plan).values():
+            for bi, i0, j0, c0 in items:
+                assert 0 <= bi < b and i0 < h and j0 < w and c0 < c
+                count[bi, i0:i0 + plan.th, j0:j0 + plan.tw,
+                      c0 // 8:(c0 + plan.cb) // 8] += 1
+        assert (count == 1).all(), plan
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=PLAN_IDS)
+def test_plan_partitions_items_between_blocks(shape):
+    """Each (spatial item, chunk) goes to one block, every block takes a
+    contiguous balanced range (sizes differ by at most one, none empty),
+    and dk's partials are one a block along the spatial items."""
+    for plan in _plans(shape):
+        blocks = depthwise._work_items(plan)
+        assert set(blocks) == {(p, ch) for p in range(plan.parts)
+                               for ch in range(plan.chunks)}
+        every = [it for items in blocks.values() for it in items]
+        assert len(every) == len(set(every)) == plan.n_spatial * plan.chunks
+        sizes = {len(items) for items in blocks.values()}
+        assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+        for ch in range(plan.chunks):  # one chunk's blocks see every item once
+            spatial = [it[:3] for p in range(plan.parts) for it in blocks[(p, ch)]]
+            assert len(spatial) == len(set(spatial)) == plan.n_spatial
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=PLAN_IDS)
+def test_plan_fits_a_block(shape):
+    """Threads within the kernels' launch bound, whole thread strips,
+    and the ring's shared memory within the 227 KB a block may use."""
+    for plan in _plans(shape):
+        assert plan.threads <= depthwise.MAX_THREADS
+        assert plan.th == plan.strips * plan.rows and plan.cb % plan.vec == 0
+        assert plan.cb % depthwise.CHANNEL_ALIGN == 0
+        assert plan.smem <= depthwise.SMEM_LIMIT
+        boxes = sum(depthwise._r128(np.prod(box) * plan.itemsize)
+                    for box in plan.boxes)
+        assert plan.smem >= plan.stages * boxes + depthwise.RING
+        assert 1 <= plan.stages <= depthwise.MAX_STAGES
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=PLAN_IDS)
+def test_plan_tma_boxes_are_legal(shape):
+    """cuTensorMapEncodeTiled takes boxes of at most 256 per dim whose
+    inner dim is a multiple of 16 bytes."""
+    for plan in _plans(shape):
+        for box in plan.boxes:
+            assert all(1 <= d <= 256 for d in box), box
+            assert box[0] * plan.itemsize % 16 == 0, box
+
+
+def test_plan_takes_the_full_width_of_narrow_maps():
+    """Maps up to 40 wide are one tile wide; wider ones split evenly."""
+    for w in (1, 10, 19, 38, 40):
+        assert depthwise._plan(8, w, w, 64, 2).tw == w
+    assert depthwise._plan(8, 75, 75, 128, 2).tw == 25
+    assert depthwise._plan(8, 150, 150, 32, 2).tw == 30
