@@ -50,6 +50,11 @@ SSD300_FEATURE_MAPS = make_ssd_feature_maps(
     map_sizes=(38, 19, 10, 5, 3, 1),
     boxes_per_map=(4, 6, 6, 6, 4, 4),
 )
+# VGG16-SSD512 adds a seventh map: 24564 anchors
+SSD512_FEATURE_MAPS = make_ssd_feature_maps(
+    map_sizes=(64, 32, 16, 8, 4, 2, 1),
+    boxes_per_map=(4, 6, 6, 6, 6, 4, 4),
+)
 
 # aspect-ratio sets by anchors-per-cell: ar=1 twice (s_k and sqrt(s_k s_{k+1}))
 _AR_SETS = {

@@ -11,10 +11,14 @@ CUDA tensors and the plain greedy on CPU tensors. The kernel replaces
 bdd100k_tpu/ops/pallas_nms.py::pallas_greedy_suppress. Its bound on the
 card is tiny either way — the K(K−1)/2 IoUs of a row are ~14 f32 ops each
 and a candidate is 18 bytes, ~0.1 µs of work for B=8, C=10, K=100 — so
-what costs time is the sequential K-step greedy chain. The design builds
-the IoU-above-threshold bit matrix in parallel (one block per (image,
-class) row, 64-bit words in shared memory) and leaves one warp to walk
-the chain with the keep bits in registers.
+what costs time is latency: the sequential greedy chain, with fewer rows
+than SMs at serving sizes. A call is one launch on the inputs as they are
+(K ≤ 256, the ragged last word masked in the kernel, nothing padded or
+copied when they are contiguous). One block takes one (image, class) row:
+its 32 warps build the upper triangle of the IoU-above-threshold bit
+matrix once, one (row, 32-candidate word) pair a warp and a ballot a
+word, then one warp resolves the greedy order word by word: inside a word
+in registers, across words by one OR over the warp.
 """
 
 from __future__ import annotations
@@ -29,8 +33,7 @@ from bdd100k_tpu_torch.ops import boxes as box_ops
 from bdd100k_tpu_torch.utils import cuda_build
 
 LAUNCHES = {"greedy_suppress": 0}
-_TILE = 64  # the kernel takes K in whole 64-bit words
-_MAX_K = 256
+_MAX_K = 256  # the kernel's row: eight 32-candidate words in shared memory
 
 
 class Detections(NamedTuple):
@@ -71,8 +74,8 @@ def greedy_suppress_cuda(
     boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float = 0.45
 ) -> torch.Tensor:
     """The CUDA kernel: boxes (B, C, K, 4) f32, valid (B, C, K) bool on the
-    card, K ≤ 256 → keep (B, C, K) bool. K is padded to the kernel's
-    64-candidate words (padding is invalid, so it never suppresses)."""
+    card, 1 ≤ K ≤ 256 → keep (B, C, K) bool, in one launch. Contiguous
+    inputs are passed as they are; others are copied once."""
     if not boxes.is_cuda or not valid.is_cuda:
         raise ValueError("greedy_suppress_cuda needs CUDA tensors")
     if boxes.dtype != torch.float32 or valid.dtype != torch.bool:
@@ -88,24 +91,23 @@ def greedy_suppress_cuda(
     b, c, k, _ = boxes.shape
     if k > _MAX_K:
         raise ValueError(f"greedy_suppress_cuda takes K ≤ {_MAX_K}, got {k}")
-    kp = -(-k // _TILE) * _TILE
-    if kp != k:
-        boxes = F.pad(boxes, (0, 0, 0, kp - k))
-        valid = F.pad(valid, (0, kp - k))
     boxes = boxes.contiguous()
     valid = valid.contiguous()
-    keep = torch.empty((b, c, kp), dtype=torch.bool, device=boxes.device)
+    if boxes.data_ptr() % 16:
+        raise ValueError("greedy_suppress_cuda reads a box as 16 aligned bytes; "
+                         "the boxes' storage offset breaks that")
+    keep = torch.empty((b, c, k), dtype=torch.bool, device=boxes.device)
     if b * c == 0 or k == 0:
-        return keep[..., :k]
+        return keep
     lib = cuda_build.kernel_library("nms")
     err = lib.greedy_suppress(
-        boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b * c, kp,
+        boxes.data_ptr(), valid.data_ptr(), keep.data_ptr(), b * c, k,
         _threshold(iou_threshold),
         torch.cuda.current_stream(boxes.device).cuda_stream,
     )
     cuda_build.check(err, "greedy_suppress")
     LAUNCHES["greedy_suppress"] += 1
-    return keep[..., :k]
+    return keep
 
 
 def greedy_suppress(

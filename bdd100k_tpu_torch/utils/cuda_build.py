@@ -1,10 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Each `csrc/<name>.cu` is compiled by nvcc into its own shared library with
-a plain C interface and loaded with ctypes: no PyTorch headers, no
+Each `csrc/<name>.cu` (with the shared `csrc/*.cuh` headers it includes)
+is compiled by nvcc into its own shared library with a plain C interface
+and loaded with ctypes: no PyTorch headers, no
 `torch.utils.cpp_extension`, no ninja — a build takes seconds. Libraries
-land in `bdd100k_tpu_torch/_build/`, keyed by a hash of the source and the
-flags, at first use (or all at once, in parallel, through `build_all`).
+land in `bdd100k_tpu_torch/_build/`, keyed by a hash of the sources and
+the flags, at first use (or all at once, in parallel, through `build_all`).
 Nothing is compiled when a module is imported.
 """
 
@@ -26,8 +27,9 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # per-source extra flags; the NMS and matcher IoUs must round exactly like
 # the f32 reference, so their builds also forbid FMA contraction; ptxas
-# reports the depthwise kernels' registers, shared memory and spills
-_EXTRA_FLAGS = {"nms": ["-fmad=false"], "matcher": ["-fmad=false"],
+# reports every kernel's registers, shared memory and spills
+_EXTRA_FLAGS = {"nms": ["-fmad=false", "-Xptxas", "-v"],
+                "matcher": ["-fmad=false", "-Xptxas", "-v"],
                 "depthwise": ["-Xptxas", "-v"]}
 
 # name → (C entry points and their argument types)
@@ -41,9 +43,8 @@ SIGNATURES = {
         "dw3x3_s1_fgrad_bf16": [_P, _P, _P] + [_I] * 11 + [_P],
         "dw3x3_s1_fgrad_sum": [_P, _P, _I, _I, _P],
     },
-    "matcher": {
-        "encode_targets": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _F, _F, _F, _P],
+    "matcher": {  # pointers, (B, M, A), the plan, threshold and variances
+        "encode_targets": [_P] * 8 + [_I] * 3 + [_I] * 4 + [_F] * 3 + [_P],
     },
 }
 
@@ -72,7 +73,10 @@ def _command(name: str, out: Path) -> list[str]:
 
 
 def library_path(name: str) -> Path:
+    """The library's path, keyed by its source, the shared headers it may
+    include (`csrc/*.cuh`) and the flags."""
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     key = hashlib.sha256(
         src + " ".join(_ARCH + _BASE_FLAGS + _EXTRA_FLAGS.get(name, [])).encode()
     ).hexdigest()[:16]

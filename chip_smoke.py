@@ -10,8 +10,11 @@ at full width: serving (the committed trained artifact, through
 `load_predictor`) and training (the `bdd100k_tpu_torch.train` driver at
 batch 32 from the seeded init, with a checkpoint and a resume), and checks
 that each path really ran through its kernels and that its output is
-right. Each phase prints one JSON line; any failure raises, so the exit
-code is not 0.
+right. NMS and the matcher are also held bit-equal at the edges of what
+they take (K from 1 to 256, greedy-trap chains; zero-area and whole-image
+GTs, M = 1, SSD512's and the tiny config's anchors), each call one launch,
+beside the launch floor of the card. Each phase prints one JSON line; any
+failure raises, so the exit code is not 0.
 The second-to-last lines are the kernel table (`{"kernels": [...]}`) and
 the card's name and power limit as nvidia-smi gives them; the last line is
 `{"ok": true, "device": {...}}`.
@@ -120,6 +123,53 @@ def nms_bound_ms(b: int, c: int, k: int) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def nms_trap_row(rng: np.random.RandomState, k: int, at: tuple[int, int, int]):
+    """One row of K candidates with a greedy-trap chain at positions
+    a < b < c: a suppresses b (IoU 0.5), b overlaps c above the threshold
+    (IoU 0.5) and a and c do not (IoU 0.2), so c survives. The other
+    candidates are small boxes at y > 0.25, away from the chain."""
+    cxy = rng.uniform([0.05, 0.3], [0.95, 0.95], (k, 2))
+    wh = rng.uniform(0.02, 0.1, (k, 2))
+    row = np.clip(np.concatenate([cxy - wh / 2, cxy + wh / 2], -1), 0, 1)
+    for pos, x1 in zip(at, (0.0, 0.2, 0.4)):
+        row[pos] = [x1, 0.0, x1 + 0.6, 0.1]
+    return row.astype(np.float32)
+
+
+def nms_edge_cases(rng: np.random.RandomState, k: int):
+    """(name, boxes, valid, trap positions or None) held bit-equal to the
+    plain greedy at K ∈ NMS_EDGE_K: chip_smoke's six cases (K ≥ 3) at
+    B=2, C=3, greedy-trap chains (inside a word, and across words where K
+    allows) and a single row; at K=1, random boxes and validity."""
+    cases = []
+    if k >= 3:
+        cases += [(n, bx, vd, None) for n, bx, vd in nms_cases(rng, 2, 3, k)]
+        chains = [(0, 1, 2)] + ([(30, 33, k - 1)] if k > 34 else [])
+        for at in chains:
+            bx = np.stack([np.stack([nms_trap_row(rng, k, at) for _ in range(3)])
+                           for _ in range(2)])
+            cases.append((f"greedy_trap_{at}", bx, np.ones((2, 3, k), bool), at))
+    else:
+        bx = nms_cases(rng, 2, 3, 3)[0][1][..., :k, :]
+        cases.append(("random", np.ascontiguousarray(bx), rng.rand(2, 3, k) > 0.3, None))
+    bx, vd = nms_cases(rng, 1, 1, max(k, 3))[0][1:]
+    cases.append(("single_row", np.ascontiguousarray(bx[..., :k, :]),
+                  np.ascontiguousarray(vd[..., :k]), None))
+    return cases
+
+
+NMS_EDGE_K = (1, 37, 100, 200, 256)
+
+
+def nms_call(torch, nms, bx, vd) -> "torch.Tensor":
+    """One kernel call, held to one launch."""
+    launched = nms.LAUNCHES["greedy_suppress"]
+    keep = nms.greedy_suppress_cuda(bx, vd, 0.45)
+    if nms.LAUNCHES["greedy_suppress"] - launched != 1:
+        raise AssertionError("an NMS call is not one launch")
+    return keep
+
+
 def phase_kernel_nms(torch, nms) -> dict:
     rng = np.random.RandomState(0)
     out = {"max_abs_err": 0.0}
@@ -129,7 +179,7 @@ def phase_kernel_nms(torch, nms) -> dict:
         for name, boxes, valid in nms_cases(rng, b, c, k):
             bx = torch.from_numpy(boxes).cuda()
             vd = torch.from_numpy(valid).cuda()
-            keep = nms.greedy_suppress_cuda(bx, vd, 0.45)
+            keep = nms_call(torch, nms, bx, vd)
             torch.cuda.synchronize()
             want = nms.greedy_keep_mask(
                 torch.from_numpy(boxes), torch.from_numpy(valid), 0.45)
@@ -150,7 +200,53 @@ def phase_kernel_nms(torch, nms) -> dict:
         out[k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
         emit("kernel_nms", B=b, C=c, K=k, cases=6, keep_bits_equal=True,
              launches=nms.LAUNCHES["greedy_suppress"] - launched,
+             launches_per_call=1,
+             kept=int(nms.greedy_suppress_cuda(bx, vd, 0.45).sum()),
              kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+    # K as the kernel takes it (no padding): ragged words, one candidate,
+    # a full 256, greedy-trap chains and single rows
+    rng = np.random.RandomState(1)
+    names = {}
+    for k in NMS_EDGE_K:
+        for name, boxes, valid, trap in nms_edge_cases(rng, k):
+            keep = nms_call(torch, nms, torch.from_numpy(boxes).cuda(),
+                            torch.from_numpy(valid).cuda()).cpu()
+            want = nms.greedy_keep_mask(torch.from_numpy(boxes),
+                                        torch.from_numpy(valid), 0.45)
+            if not torch.equal(keep, want):
+                raise AssertionError(f"NMS kernel disagrees with the plain greedy: "
+                                     f"K={k}, case {name}")
+            if trap and not (bool(want[..., trap[0]].all())
+                             and not bool(want[..., trap[1]].any())
+                             and bool(want[..., trap[2]].all())):
+                raise AssertionError(f"greedy-trap case {name} did not keep a and c")
+            names.setdefault(k, []).append(name)
+    emit("kernel_nms_edges", K=list(NMS_EDGE_K), cases=names, keep_bits_equal=True,
+         launches_per_call=1)
+    return out
+
+
+def phase_nms_path_inputs(torch, nms, captures) -> dict:
+    """The kernel on the serving path's own candidates, as `phase_path_f32`
+    recorded them (a b8 batch, and its first image as a b1 request would
+    give them), beside the plain greedy's time; keep bits held equal."""
+    cap = captures[0]
+    out = {}
+    for bs in (1, 8):
+        bx = cap["boxes"][:bs].contiguous()
+        vd = cap["valid"][:bs].contiguous()
+        thr = cap["iou_threshold"]
+        keep = nms_call(torch, nms, bx, vd)
+        if not torch.equal(keep.cpu(), nms.greedy_keep_mask(bx.cpu(), vd.cpu(), thr)):
+            raise AssertionError(f"NMS on the path's b{bs} candidates disagrees")
+        b, c, k = vd.shape
+        bound, by = nms_bound_ms(b, c, k)
+        out[f"b{bs}"] = dict(
+            B=b, C=c, K=k, valid=int(vd.sum()), kept=int(keep.sum()),
+            kernel_ms=time_ms(torch, lambda: nms.greedy_suppress_cuda(bx, vd, thr)),
+            plain_ms=time_ms(torch, lambda: nms.greedy_keep_mask(bx, vd, thr)),
+            bound_ms=bound, bound_by=by)
+    emit("kernel_nms_path_inputs", keep_bits_equal=True, **out)
     return out
 
 
@@ -473,26 +569,90 @@ def matcher_cases(torch, anchors, rng):
     return cases, half_anchor
 
 
-def matcher_bound_ms(gtm: np.ndarray, a: int) -> tuple[float, str]:
+def matcher_edge_cases(rng, corners: np.ndarray, b: int = 8, m: int = MATCH_M):
+    """(name, gt_boxes, gt_labels, gt_mask) numpy cases against one anchor
+    set (its corners given): random padded GT; a zero-area GT, whose best
+    anchor is anchor 0 (`no_overlap`); a GT over the whole image, which no
+    warp can cull; M = 1; one valid GT, the last index."""
+    def random_gt(rows):
+        gtb = np.zeros((b, rows, 4), np.float32)
+        gtl = rng.randint(1, 11, (b, rows)).astype(np.int32)
+        gtm = np.zeros((b, rows), bool)
+        for i in range(b):
+            n = rng.randint(1, rows + 1)
+            cxy = rng.uniform(0.05, 0.95, (n, 2))
+            wh = rng.uniform(0.01, 0.6, (n, 2))
+            gtb[i, :n] = np.clip(np.concatenate([cxy - wh / 2, cxy + wh / 2], -1), 0, 1)
+            gtm[i, :n] = True
+            gtb[i, n:] = rng.rand(rows - n, 4)
+        return gtb, gtl, gtm
+
+    cases = [("random", *random_gt(m))]
+    gtb, gtl, gtm = random_gt(m)
+    last = gtm.sum(1) - 1                       # each image's last valid GT
+    gtb[np.arange(b), last] = [0.5, 0.5, 0.5, 0.5]
+    cases.append(("no_overlap", gtb, gtl, gtm))
+    gtb, gtl, gtm = random_gt(m)
+    gtb[:, 0], gtm[:, 0] = [0.0, 0.0, 1.0, 1.0], True
+    cases.append(("whole_image", gtb, gtl, gtm))
+    gtb, gtl, gtm = random_gt(1)
+    gtm[::4] = False                            # some images with no GT
+    cases.append(("m1", gtb, gtl, gtm))
+    gtb, gtl, gtm = random_gt(m)
+    gtm[:] = False
+    gtm[:, m - 1] = True
+    gtb[:, m - 1] = corners[rng.choice(len(corners), b)] * np.float32(1.5) - 0.1
+    cases.append(("single_gt_last_index", np.clip(gtb, 0, 1), gtl, gtm))
+    return cases
+
+
+def matcher_bound_ms(gtm: np.ndarray, a: int) -> tuple[float, str, float, float]:
     """The IoUs this data needs (real GT rows × anchors, ~16 f32 ops each
     with the divide) against the bytes: GT in (21 B a row), anchors in,
-    per anchor 8 + 1 + 8 + 16 bytes out."""
+    per anchor 8 + 1 + 8 + 16 bytes out → (bound, what bounds it, the
+    bytes bound, the operations bound)."""
     real = int(gtm.sum())
     ops = real * a * 16
     nbytes = gtm.size * 21 + a * 16 + gtm.shape[0] * a * 33
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_FLOPS_PER_S * 1e3
-    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations",
+            t_bytes, t_ops)
+
+
+def matcher_call(torch, matcher, args):
+    """One kernel call, held to one launch."""
+    launched = matcher.LAUNCHES["encode_targets"]
+    got = matcher.encode_targets_cuda(*args)
+    if matcher.LAUNCHES["encode_targets"] - launched != 1:
+        raise AssertionError("a matcher call is not one launch")
+    return got
+
+
+def check_match(torch, got, want, what: str) -> float:
+    """Discrete outputs bit-equal, loc within rtol 1e-5, atol 1e-6 →
+    loc max|Δ|."""
+    for field in ("matched_gt", "positive", "cls_targets"):
+        bad = int((getattr(got, field) != getattr(want, field)).sum())
+        if bad:
+            raise AssertionError(f"matcher {field} differs at {bad} anchors, {what}")
+    if not torch.allclose(got.loc_targets, want.loc_targets, rtol=1e-5, atol=1e-6):
+        raise AssertionError(f"matcher loc_targets beyond rtol 1e-5, atol 1e-6, {what}")
+    return float((got.loc_targets - want.loc_targets).abs().max())
 
 
 def phase_kernel_matcher(torch, matcher, matching, anchors) -> dict:
+    from bdd100k_tpu_torch.configs import tiny_test_config
+    from bdd100k_tpu_torch.ops import boxes as box_ops
+    from bdd100k_tpu_torch.ops.anchors import SSD512_FEATURE_MAPS, ssd_anchors
+
     rng = np.random.RandomState(0)
     cases, half_anchor = matcher_cases(torch, anchors, rng)
     loc_err = 0.0
     half_negative = 0
     for name, gtb, gtl, gtm in cases:
         args = [torch.from_numpy(a).cuda() for a in (gtb, gtl, gtm)] + [anchors]
-        got = matcher.encode_targets_cuda(*args)
+        got = matcher_call(torch, matcher, args)
         want = matching.encode_targets(*args)
         torch.cuda.synchronize()
         if name == "iou_half":
@@ -500,22 +660,40 @@ def phase_kernel_matcher(torch, matcher, matching, anchors) -> dict:
             # the strict threshold decides them
             half_negative = int(sum(not bool(want.positive[i, a])
                                     for i, a in enumerate(half_anchor)))
-        for field in ("matched_gt", "positive", "cls_targets"):
-            bad = int((getattr(got, field) != getattr(want, field)).sum())
-            if bad:
-                raise AssertionError(f"matcher {field} differs at {bad} anchors, "
-                                     f"case {name}")
-        if not torch.allclose(got.loc_targets, want.loc_targets, rtol=1e-5, atol=1e-6):
-            raise AssertionError(f"matcher loc_targets beyond rtol 1e-5, atol 1e-6, "
-                                 f"case {name}")
-        loc_err = max(loc_err, float((got.loc_targets - want.loc_targets).abs().max()))
+        loc_err = max(loc_err, check_match(torch, got, want, f"case {name}"))
     if half_negative == 0:
         raise AssertionError("no anchor at IoU exactly 0.5 is left to the threshold")
+    # the edge cases against SSD300's, SSD512's and ssd_tiny_64's anchors
+    sets = {"ssd300": anchors, "ssd512": ssd_anchors(SSD512_FEATURE_MAPS).cuda(),
+            "ssd_tiny_64": ssd_anchors(tiny_test_config("ssd").feature_maps).cuda()}
+    edge_rng = np.random.RandomState(1)
+    edges, names = {}, []
+    for set_name, anc in sets.items():
+        corners = box_ops.center_to_corner(anc.cpu()).numpy()
+        for name, gtb, gtl, gtm in matcher_edge_cases(edge_rng, corners):
+            names.append(f"{set_name} {name}")
+            args = [torch.from_numpy(a).cuda() for a in (gtb, gtl, gtm)] + [anc]
+            got = matcher_call(torch, matcher, args)
+            want = matching.encode_targets(*args)
+            loc_err = max(loc_err, check_match(torch, got, want, f"{set_name} {name}"))
+            if name == "no_overlap" and not bool(
+                    (want.matched_gt[:, 0].cpu().numpy() == gtm.sum(1) - 1).all()):
+                raise AssertionError("a zero-area GT did not take anchor 0")
+        edges[set_name] = dict(A=int(anc.shape[0]), plan=matcher._plan(
+            int(anc.shape[0]), MATCH_M)._asdict())
+    emit("kernel_matcher_edges", cases=names, anchor_sets=edges,
+         discrete_outputs_bit_equal=True, launches_per_call=1)
     name, gtb, gtl, gtm = cases[0]
     args = [torch.from_numpy(a).cuda() for a in (gtb, gtl, gtm)] + [anchors]
+    first, again = matcher_call(torch, matcher, args), matcher_call(torch, matcher, args)
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError("two matcher calls differ")
     ms = time_ms(torch, lambda: matcher.encode_targets_cuda(*args))
     plain_ms = time_ms(torch, lambda: matching.encode_targets(*args))
-    bound, by = matcher_bound_ms(gtm, anchors.shape[0])
+    bound, by, bytes_ms, ops_ms = matcher_bound_ms(gtm, anchors.shape[0])
+    a512 = sets["ssd512"]
+    args512 = [torch.from_numpy(a).cuda() for a in (gtb, gtl, gtm)] + [a512]
+    ms512 = time_ms(torch, lambda: matcher.encode_targets_cuda(*args512))
     out = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
                max_abs_err=loc_err)
     emit("kernel_matcher", B=MATCH_B, M=MATCH_M, A=int(anchors.shape[0]),
@@ -523,8 +701,22 @@ def phase_kernel_matcher(torch, matcher, matching, anchors) -> dict:
          iou_half_left_negative=half_negative,
          discrete_outputs_bit_equal=True, loc_tolerance="rtol 1e-5, atol 1e-6",
          loc_max_abs_err=loc_err, real_gt_rows_timed=int(gtm.sum()),
-         kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+         two_calls_bit_equal=True, launches_per_call=1,
+         plan=matcher._plan(int(anchors.shape[0]), MATCH_M)._asdict(),
+         kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+         bytes_bound_ms=bytes_ms, operations_bound_ms=ops_ms,
+         ssd512_A=int(a512.shape[0]), ssd512_kernel_ms=ms512,
+         ssd512_bound_ms=matcher_bound_ms(gtm, a512.shape[0])[0])
     return out
+
+
+def phase_launch_floor(torch) -> float:
+    """A one-element in-place add through `time_ms`: the least a graph
+    node costs on this card, the floor under every one-launch kernel."""
+    one = torch.zeros(1, device="cuda")
+    ms = time_ms(torch, lambda: one.add_(1.0))
+    emit("launch_floor", op="one-element in-place add", ms=ms)
+    return ms
 
 
 # ----------------------------------------------------------------- path
@@ -606,6 +798,7 @@ def phase_path_f32(torch, infer, nms, dw, frames) -> None:
     emit("path_f32", frames=len(frames), batches=len(batches), launches=launches,
          nms_keep_bits_equal_in_path=True, logits_max_abs_err_vs_cpu=max_err,
          logits_atol=2e-3, confident_detections_agree=True)
+    return captures
 
 
 SERVE_REQUESTS = 256  # per batch size, after warm-up: a window of seconds
@@ -951,7 +1144,7 @@ def phase_train_bf16(torch, dw, matcher) -> dict:
 
 # kernel-name substrings → the layer that launched them
 PROFILE_BUCKETS = (
-    ("port kernels", ("dw3x3_s1", "match_phase")),
+    ("port kernels", ("dw3x3_s1", "match_encode")),
     ("convolution (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "wgrad",
                              "dgrad", "fprop", "nhwc", "nchw")),
     ("matmul", ("gemm", "cutlass", "sm90")),
@@ -1084,17 +1277,20 @@ def main() -> int:
     libs = cuda_build.build_all()
     emit("build", seconds=time.perf_counter() - t0,
          libraries={k: str(v.relative_to(ROOT)) for k, v in libs.items()},
-         depthwise_ptxas=ptxas_report(cuda_build.BUILD_LOGS.get("depthwise", "")))
+         **{f"{name}_ptxas": ptxas_report(cuda_build.BUILD_LOGS.get(name, ""))
+            for name in ("depthwise", "nms", "matcher")})
 
-    # phases 3-6: each kernel against its plain version
+    # phases 3-6: each kernel against its plain version, and the launch floor
+    floor_ms = phase_launch_floor(torch)
     nms_t = phase_kernel_nms(torch, nms)
     dw_t = phase_kernel_depthwise(torch, dw)
     bwd_t = phase_kernel_depthwise_bwd(torch, dw)
     match_t = phase_kernel_matcher(torch, matcher, matching, ssd_anchors().cuda())
 
     frames, gt_boxes, gt_labels = generate_synthetic_scenes(16, seed=1)
-    # phase 5: the f32 path against the CPU
-    phase_path_f32(torch, infer, nms, dw, frames)
+    # phase 5: the f32 path against the CPU, and NMS on its candidates
+    captures = phase_path_f32(torch, infer, nms, dw, frames)
+    nms_path = phase_nms_path_inputs(torch, nms, captures)
     # phase 6: serving in bf16 — the main path
     launches, _ = phase_path_bf16(torch, infer, nms, dw, map_metric,
                                   frames, gt_boxes, gt_labels)
@@ -1143,12 +1339,15 @@ def main() -> int:
              library_ms=None),
     ]
     emit("done", seconds=time.perf_counter() - t_start,
+         launch_floor_ms=floor_ms,
+         nms_k200=nms_t[200], nms_path_inputs=nms_path,
          depthwise_dx_b32_bf16=bwd_t["dx"],
          depthwise_dk_b32_bf16=bwd_t["dk"],
-         note="kernel ms: NMS at B=8 C=10 K=100; depthwise forward summed over "
-              "the 9 stride-1 layers at B=8 bf16, filter gradient at B=32 bf16; "
-              "matcher at B=32 M=100 A=8732; launches: depthwise3x3_s1 = 4608 "
-              "serving + 720 training (forward and dx)")
+         note="kernel ms: NMS at B=8 C=10 K=100 (one launch a call); depthwise "
+              "forward summed over the 9 stride-1 layers at B=8 bf16, filter "
+              "gradient at B=32 bf16; matcher at B=32 M=100 A=8732 (one launch a "
+              "call); launches: depthwise3x3_s1 = 4608 serving + 720 training "
+              "(forward and dx)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,13 @@ the CPU.
   against JAX `encode_targets` and `pallas_encode_targets(interpret=True)`,
   at the full 8732 SSD300 anchors, B=2, over random padded GT, two GTs
   claiming one anchor, an image with no GT, a GT equal to an anchor, an
-  IoU exactly at the 0.5 threshold and tiny boxes;
+  IoU exactly at the 0.5 threshold, tiny boxes, a zero-area GT (its best
+  anchor is anchor 0), a GT over the whole image, one valid GT at the last
+  index, and M = 1;
+* the kernel's launch plan (`matcher._plan`) deals every
+  anchor of SSD300, SSD512 and the tiny config to one thread slot, within
+  the kernel's limits, and refuses what it cannot take; the port's SSD512
+  anchors equal the reference's;
 * `hard_negative_mask` with tied losses (the stable sort's order);
 * `ssd_loss` on the same logits and match, and `encode_boxes`.
 
@@ -87,6 +93,8 @@ def _iou_half_gt():
 
 def _case(name, seed=0):
     rng = np.random.RandomState(seed)
+    if name == "m1":                 # one GT row; the second image has none
+        return _random_gt(rng, m=1, n_real=(1, 0))
     gtb, gtl, gtm = _random_gt(rng)
     if name == "duplicate_claim":    # two GTs, one box: one best anchor
         gtb[0, 1] = gtb[0, 0]
@@ -102,11 +110,20 @@ def _case(name, seed=0):
         c = rng.uniform(0.1, 0.9, (M, 2)).astype(np.float32)
         gtb[1] = np.concatenate([c, c + 0.004], -1)
         gtm[1] = True
+    elif name == "no_overlap":       # zero area: IoU 0 everywhere, anchor 0
+        gtb[0, 6] = [0.5, 0.5, 0.5, 0.5]
+    elif name == "whole_image":      # overlaps every anchor: nothing culls it
+        gtb[:, 0] = [0.0, 0.0, 1.0, 1.0]
+    elif name == "single_gt_last_index":
+        gtm[:] = False
+        gtm[:, M - 1] = True
+        gtb[:, M - 1] = [[0.2, 0.3, 0.45, 0.7], [0.6, 0.1, 0.9, 0.35]]
     return gtb, gtl, gtm
 
 
 CASES = ["random", "duplicate_claim", "empty_image", "gt_is_anchor",
-         "iou_half", "tiny_boxes"]
+         "iou_half", "tiny_boxes", "no_overlap", "whole_image",
+         "single_gt_last_index", "m1"]
 
 
 def _assert_match_equal(got, want, loc_exact=False):
@@ -154,6 +171,12 @@ def test_oracle_matches_jax_and_pallas(case):
         assert (got.matched_gt.numpy()[0][pos[0]] != 0).all()
     if case == "empty_image":
         assert not pos[1].any() and (got.cls_targets.numpy()[1] == 0).all()
+    if case == "no_overlap":        # the zero-area GT (image 0's last) takes anchor 0
+        assert pos[0, 0] and got.matched_gt.numpy()[0, 0] == 6
+    if case == "single_gt_last_index":
+        assert (got.matched_gt.numpy() == M - 1).all() and pos.any(axis=1).all()
+    if case == "m1":
+        assert pos[0].any() and not pos[1].any()
     if case == "tiny_boxes":        # only the forced claims are positive
         iou = boxes.iou_pairwise(torch.from_numpy(gtb[1]),
                                  boxes.center_to_corner(ANCHORS))
@@ -223,3 +246,68 @@ def test_smooth_l1_matches_jax():
     x = np.linspace(-3, 3, 101, dtype=np.float32)
     np.testing.assert_array_equal(losses.smooth_l1(torch.from_numpy(x)).numpy(),
                                   np.asarray(jax_losses.smooth_l1(jnp.asarray(x))))
+
+
+ANCHOR_COUNTS = {"ssd300": 8732, "ssd512": 24564, "ssd_tiny_64": 368}
+
+
+def _anchor_owners(plan, a):
+    """(A, 4): the (block, warp, lane, k) that holds each anchor, by the
+    kernel's arithmetic (csrc/matcher.cu: anchor 32k + lane of chunk
+    block + blocks · warp)."""
+    ids = np.arange(a)
+    chunk = ids // (32 * plan.per_thread)
+    within = ids % (32 * plan.per_thread)
+    return np.stack([chunk % plan.blocks, chunk // plan.blocks, within % 32,
+                     within // 32], axis=1)
+
+
+@pytest.mark.parametrize("a", [*ANCHOR_COUNTS.values(), 1, 31, 33, 257, 9216,
+                               9217, 32768],
+                         ids=[*ANCHOR_COUNTS, "1", "31", "33", "257", "9216",
+                              "9217", "32768"])
+def test_matcher_plan_deals_every_anchor_once(a):
+    """Every anchor has one (block, warp, lane, k) slot, inside the block's
+    threads and the kernel's instantiations; shared memory fits."""
+    plan = matcher._plan(a, 100)
+    owners = _anchor_owners(plan, a)
+    assert plan.per_thread in matcher.MAX_THREADS
+    assert plan.threads % 32 == 0
+    assert plan.threads <= matcher.MAX_THREADS[plan.per_thread]
+    assert 1 <= plan.blocks <= matcher.CLUSTER
+    assert plan.smem <= matcher.SMEM_LIMIT
+    assert owners[:, 0].max() < plan.blocks
+    assert owners[:, 1].max() < plan.threads // 32
+    assert owners[:, 2].max() < 32 and owners[:, 3].max() < plan.per_thread
+    slots = {tuple(o) for o in owners}
+    assert len(slots) == a
+    # a warp's anchors are consecutive: its box covers one strip of a map
+    chunk = (owners[:, 0] + plan.blocks * owners[:, 1]).astype(np.int64)
+    assert (np.diff(chunk) >= 0).all()
+
+
+def test_matcher_plan_of_the_configs():
+    """SSD300's plan is the one the kernel's register bound was set for
+    (two 576-thread blocks an SM); SSD512 and the tiny config fit too."""
+    assert matcher._plan(8732, 100) == matcher.Plan(8, 2, 576, 100 * (28 + 8 * 18)
+                                                    + 4 * 576 * 2)
+    assert matcher._plan(24564, 100).per_thread == 4
+    assert matcher._plan(368, 100).threads == 64
+
+
+def test_matcher_plan_refuses_with_reason():
+    with pytest.raises(ValueError, match="takes at most 32768"):
+        matcher._plan(32769, 100)
+    with pytest.raises(ValueError, match="shared memory"):
+        matcher._plan(8732, 2000)
+    with pytest.raises(ValueError, match="M ≥ 1"):
+        matcher._plan(8732, 0)
+
+
+def test_ssd512_anchors_match_jax():
+    from bdd100k_tpu.ops.anchors import SSD512_FEATURE_MAPS as JAX_SSD512
+    from bdd100k_tpu_torch.ops.anchors import SSD512_FEATURE_MAPS
+
+    got = ssd_anchors(SSD512_FEATURE_MAPS).numpy()
+    assert got.shape == (ANCHOR_COUNTS["ssd512"], 4)
+    np.testing.assert_array_equal(got, np.asarray(jax_ssd_anchors(JAX_SSD512)))

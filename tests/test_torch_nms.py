@@ -3,7 +3,8 @@
 * the plain greedy (`greedy_keep_mask`, the CUDA kernel's plain version)
   is bit-equal to the reference oracle `greedy_keep_mask` and to
   `pallas_greedy_suppress(..., interpret=True)`, on hypothesis-drawn and
-  adversarial inputs;
+  adversarial inputs (greedy-trap chains among them) and at K = 1 and K
+  not a multiple of 32;
 * `postprocess` agrees with the JAX `postprocess` on random logits at the
   tiny config and at 8732 anchors, against the reference's dense and
   anchor-pruned preselects (its guard taken and refused) and on tied
@@ -127,7 +128,28 @@ def _adversarial():
         np.clip(np.float32([0.3, 0.3, 0.6, 0.6]) + jit, 0, 1),
         np.ones((B, C, K), bool),
     )
+    cases["greedy_trap"] = (_trap_rows(rng, K), np.ones((B, C, K), bool))
     return cases
+
+
+# greedy-trap chains a < b < c, inside one 32-candidate word and across
+# words: a suppresses b (IoU 0.5), b overlaps c above the threshold (IoU
+# 0.5), a and c do not (IoU 0.2), so c survives under the greedy rule
+TRAPS = ((0, 1, 2), (30, 33, 39))
+
+
+def _trap_rows(rng, k, traps=TRAPS):
+    """(B, C, k, 4) small random boxes at y > 0.25, away from the chains,
+    each laid in a strip of its own below y = 0.25."""
+    cxy = rng.uniform([0.05, 0.3], [0.95, 0.95], (B, C, k, 2))
+    wh = rng.uniform(0.02, 0.1, (B, C, k, 2))
+    boxes = np.clip(np.concatenate([cxy - wh / 2, cxy + wh / 2], -1), 0, 1)
+    for strip, chain in enumerate(traps):
+        y = 0.12 * strip
+        if chain[-1] < k:
+            for pos, x1 in zip(chain, (0.0, 0.2, 0.4)):
+                boxes[..., pos, :] = [x1, y, x1 + 0.6, y + 0.1]
+    return boxes.astype(np.float32)
 
 
 @pytest.mark.parametrize("case", sorted(_adversarial()))
@@ -137,6 +159,23 @@ def test_plain_greedy_bit_equal_adversarial(case):
     if case == "iou_on_threshold":
         keep = _port_keep(boxes, valid)
         assert keep[..., 1].all() and not keep[..., 2].any()
+    if case == "greedy_trap":
+        keep = _port_keep(boxes, valid)
+        for a, b, c in TRAPS:
+            assert keep[..., a].all() and not keep[..., b].any() and keep[..., c].all()
+
+
+# K as the kernel takes it, unpadded: one candidate, ragged last words
+@pytest.mark.parametrize("k", [1, 31, 37, 65])
+def test_plain_greedy_bit_equal_at_k(k):
+    rng = np.random.RandomState(k)
+    cxy = rng.uniform(0.05, 0.95, (B, C, k, 2))
+    wh = rng.uniform(0.02, 0.5, (B, C, k, 2))
+    boxes = np.clip(np.concatenate([cxy - wh / 2, cxy + wh / 2], -1), 0, 1)
+    _check(boxes.astype(np.float32), rng.rand(B, C, k) > 0.2)
+    if k >= 3:  # a chain at the row's head, and one ending on its last candidate
+        trap = _trap_rows(rng, k, ((0, 1, 2), (k - 3, k - 2, k - 1)))
+        _check(trap, np.ones((B, C, k), bool))
 
 
 def _assert_same_detections(got, want):
