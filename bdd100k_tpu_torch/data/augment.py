@@ -278,24 +278,41 @@ def augment_batch(gen: torch.Generator, images_u8: torch.Tensor,
     return _augment(draws, images_u8, boxes, labels, mask, cfg)
 
 
+def yuv420_to_rgb_batch(y_u8: torch.Tensor, uv_u8: torch.Tensor) -> torch.Tensor:
+    """Planar YUV 4:2:0 → f32 RGB in [0, 1], batched, on the planes'
+    device: y (B, S, S) uint8 luma, uv (B, S/2, S/2, 2) uint8 interleaved
+    CbCr → (B, S, S, 3). Nearest chroma upsample and the BT.601 full-range
+    matrix libjpeg uses, in the reference's order of f32 operations."""
+    yf = y_u8.to(torch.float32)
+    uvf = uv_u8.to(torch.float32) - 128.0
+    uvf = uvf.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    cb, cr = uvf[..., 0], uvf[..., 1]
+    r = yf + 1.402 * cr
+    g = yf - 0.344136 * cb - 0.714136 * cr
+    b = yf + 1.772 * cb
+    return torch.clip(torch.stack([r, g, b], dim=-1) / 255.0, 0.0, 1.0)
+
+
 def preprocess_eval_batch(
-    images_u8: torch.Tensor,
+    images_u8: torch.Tensor | tuple[torch.Tensor, torch.Tensor],
     out_size: int,
     norm_mean: float = 0.5,
     norm_std: float = 0.5,
 ) -> torch.Tensor:
-    """(B, H, W, 3) uint8 RGB → (B, S, S, 3) f32 normalized, NHWC.
+    """(B, H, W, 3) uint8 RGB, or a (y, uv) YUV 4:2:0 pair from the yuv420
+    wire (`yuv420_to_rgb_batch`) → (B, S, S, 3) f32 normalized, NHWC. An
+    input already at (S, S) skips the resize: a pure normalize.
 
     The reference resizes with `jax.image.resize(..., "linear")`, which
     antialiases on downscale (a triangle filter widened by the scale);
     `F.interpolate(bilinear, antialias=True, align_corners=False)` is the
     same separable triangle filter with the same normalization, and the
     result comes back in channels_last memory, i.e. a contiguous NHWC view.
-    The yuv420 wire waits for a later slice.
     """
     if isinstance(images_u8, (tuple, list)):
-        raise NotImplementedError("the yuv420 wire is not ported yet")
-    img = images_u8.to(torch.float32) / 255.0
+        img = yuv420_to_rgb_batch(*images_u8)
+    else:
+        img = images_u8.to(torch.float32) / 255.0
     b, h, w, c = img.shape
     if (h, w) != (out_size, out_size):
         img = F.interpolate(

@@ -1,33 +1,79 @@
-"""Batches of in-memory frames and their copy to the card (counterpart of
-bdd100k_tpu/data/pipeline.py::make_loader and ::prefetch_to_device).
+"""Host input pipeline: datasets → fixed batches → copies to the card
+(counterpart of bdd100k_tpu/data/pipeline.py).
 
-Until JPEG decode is ported, the frames are the rendered scenes of
-`data/synthetic.py`, held in host memory as uint8 (N, 720, 1280, 3).
+Two datasets:
+* `DetectionDataset`: JPEG files and BDD100K labels. A batch is one call
+  into the decode pool (`data/native_decode.py`, the reference's
+  `native/decode_pool.cc`), which decodes the JPEGs straight to a
+  (decode_size, decode_size) square, RGB or planar YUV 4:2:0;
+* `InMemoryDataset`: frames already in host memory as uint8, the rendered
+  scenes of `data/synthetic.py` that the trainer uses.
+
 `make_loader` keeps the reference's batching exactly: fixed batches, a
-per-epoch permutation that is a pure function of (seed, epoch), and
-`skip_steps` for resume, so a run resumed at step N continues the shuffle
-position the first run was at. `prefetch_to_device` gathers each batch
-into pinned host memory in a background thread and copies it to the card
-on a side stream, with an event the consuming stream waits on.
+per-epoch permutation that is a pure function of (seed, epoch), the final
+partial batch dropped or padded with its last index repeated, and
+`skip_steps` for resume. `prefetch_to_device` runs the loader ahead in a
+background thread (so the next batch decodes while the card works on
+this one), gathers each batch into pinned host memory and copies it to
+the card on a side stream, with an event the consuming stream waits on.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from typing import Iterator, NamedTuple
+from pathlib import Path
+from typing import Iterator, NamedTuple, Sequence
 
 import numpy as np
 import torch
 
-from bdd100k_tpu_torch.data.bdd100k import pad_ground_truth
+from bdd100k_tpu_torch.data.bdd100k import (
+    IMAGE_HEIGHT,
+    IMAGE_WIDTH,
+    load_bdd100k_labels,
+    pad_ground_truth,
+)
+from bdd100k_tpu_torch.data.native_decode import NativeDecoder
 
 
 class Batch(NamedTuple):
-    images: np.ndarray | torch.Tensor   # (B, H, W, 3) uint8
+    # (B, H, W, 3) uint8 RGB, or (y (B, S, S), uv (B, S/2, S/2, 2)) uint8
+    # planes on the yuv420 wire (augment.yuv420_to_rgb_batch rebuilds RGB)
+    images: np.ndarray | torch.Tensor | tuple
     boxes: np.ndarray | torch.Tensor    # (B, M, 4) f32 corner, normalized
     labels: np.ndarray | torch.Tensor   # (B, M) int32
     mask: np.ndarray | torch.Tensor     # (B, M) bool
+
+
+def _leaves(batch: Batch) -> list:
+    images = batch.images
+    return [*(images if isinstance(images, tuple) else (images,)),
+            batch.boxes, batch.labels, batch.mask]
+
+
+def _map(fn, batch: Batch) -> Batch:
+    images = batch.images
+    images = (tuple(fn(a) for a in images) if isinstance(images, tuple)
+              else fn(images))
+    return Batch(images, fn(batch.boxes), fn(batch.labels), fn(batch.mask))
+
+
+def rgb_to_yuv420_host(images: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(N, H, W, 3) uint8 RGB → (y (N, H, W), uv (N, H/2, W/2, 2)) uint8:
+    the BT.601 full-range forward matrix and the 2×2 chroma mean, in numpy
+    (the reference's oracle for the pool's planar output). H and W must be
+    even."""
+    f = images.astype(np.float32)
+    r, g, b = f[..., 0], f[..., 1], f[..., 2]
+    y = 0.299 * r + 0.587 * g + 0.114 * b
+    cb = 128.0 - 0.168735892 * r - 0.331264108 * g + 0.5 * b
+    cr = 128.0 + 0.5 * r - 0.418687589 * g - 0.081312411 * b
+    n, h, w = images.shape[:3]
+    uv = np.stack([cb, cr], axis=-1)
+    uv = uv.reshape(n, h // 2, 2, w // 2, 2, 2).mean(axis=(2, 4))
+    return (np.clip(y + 0.5, 0, 255).astype(np.uint8),
+            np.clip(uv + 0.5, 0, 255).astype(np.uint8))
 
 
 class InMemoryDataset:
@@ -51,30 +97,161 @@ class InMemoryDataset:
                      self.mask[idx])
 
 
+class DetectionDataset:
+    """Random-access dataset of (JPEG file, padded GT).
+
+    `decode_size` S: each JPEG decodes straight to an (S, S) square on the
+    host, through libjpeg's DCT-domain downscale and the pool's bilinear
+    resize (boxes are normalized, so the GT is unaffected); the eval path
+    decodes at the model's input size. `decode_size=None`, the reference's
+    full-resolution decode that training from files uses, is not ported
+    yet (ROADMAP Queue 1 item 8)."""
+
+    def __init__(
+        self,
+        records: Sequence[dict],
+        image_dir: str | Path,
+        max_boxes: int = 100,
+        image_height: int = IMAGE_HEIGHT,
+        image_width: int = IMAGE_WIDTH,
+        decode_size: int | None = None,
+    ):
+        if decode_size is None:
+            raise NotImplementedError(
+                "DetectionDataset(decode_size=None), the full-resolution "
+                "decode for training from files, is not ported yet "
+                "(ROADMAP Queue 1 item 8); pass decode_size")
+        self.records = list(records)
+        self.image_dir = Path(image_dir)
+        self.max_boxes = max_boxes
+        self.image_height = image_height
+        self.image_width = image_width
+        self.decode_size = decode_size
+        self._gt_arrays = None
+        self._gt_key = None
+
+    @classmethod
+    def from_bdd100k(cls, labels_path: str | Path, image_dir: str | Path,
+                     max_boxes: int = 100, **kw) -> "DetectionDataset":
+        return cls(load_bdd100k_labels(labels_path), image_dir, max_boxes, **kw)
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def read_jpegs(self, idx: Sequence[int]) -> list[bytes]:
+        return [(self.image_dir / self.records[i]["name"]).read_bytes()
+                for i in idx]
+
+    def __getitem__(self, i: int) -> dict:
+        """One image, decoded by a one-thread pool of its own (the loader
+        decodes whole batches through its pool instead)."""
+        rec = self.records[i]
+        boxes, labels, mask = pad_ground_truth(
+            rec["boxes"], rec["labels"], self.max_boxes)
+        decoder = NativeDecoder(1)
+        try:
+            image = decoder.decode_batch(self.read_jpegs([i]), self.decode_size)[0]
+        finally:
+            decoder.close()
+        return {"image": image, "boxes": boxes, "labels": labels,
+                "mask": mask, "name": rec["name"]}
+
+    def padded_gt_arrays(self) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """All GT padded into (N, M, 4) / (N, M) / (N, M) arrays, built once
+        (again if the records or max_boxes change), so a batch's GT is one
+        gather."""
+        key = (len(self.records), self.max_boxes)
+        if self._gt_key != key:
+            n, m = key
+            boxes = np.zeros((n, m, 4), np.float32)
+            labels = np.zeros((n, m), np.int32)
+            mask = np.zeros((n, m), bool)
+            for i, rec in enumerate(self.records):
+                boxes[i], labels[i], mask[i] = pad_ground_truth(
+                    rec["boxes"], rec["labels"], m)
+            self._gt_arrays = (boxes, labels, mask)
+            self._gt_key = key
+        return self._gt_arrays
+
+    def batch(self, idx: np.ndarray, decoder: NativeDecoder,
+              wire_format: str = "rgb") -> Batch:
+        """The images of `idx`, decoded in one call into `decoder`'s pool,
+        and their GT."""
+        jpegs = self.read_jpegs(idx)
+        if wire_format == "yuv420":
+            images = decoder.decode_batch_yuv420(jpegs, self.decode_size)
+        else:
+            images = decoder.decode_batch(jpegs, self.decode_size)
+        boxes, labels, mask = self.padded_gt_arrays()
+        return Batch(images, boxes[idx], labels[idx], mask[idx])
+
+
+def resolve_wire(choice: str = "auto", dataset=None) -> str:
+    """A --wire choice → "rgb" or "yuv420". "auto" takes yuv420 unless the
+    dataset's decode_size is missing or odd (4:2:0 needs even frames; no
+    dataset means the caller promises even frames). The reference also
+    falls back to rgb when its pool did not build; here the pool always
+    builds or raises, so that case does not arise."""
+    if choice != "auto":
+        return choice
+    if dataset is not None:
+        size = getattr(dataset, "decode_size", None)
+        if size is None or size % 2:
+            return "rgb"
+    return "yuv420"
+
+
 def make_loader(
-    dataset: InMemoryDataset,
+    dataset: InMemoryDataset | DetectionDataset,
     batch_size: int,
+    shuffle: bool = True,
     seed: int = 0,
+    num_epochs: int | None = None,
+    drop_last: bool = True,
     skip_steps: int = 0,
+    num_workers: int = 8,
+    wire_format: str = "rgb",
 ) -> Iterator[Batch]:
-    """Fixed batches over the dataset, reshuffled every epoch, forever; the
-    partial batch at an epoch's end is dropped. `skip_steps` fast-forwards
-    past the first N batches without building them: whole epochs only
-    advance the RNG, the rest of the skip moves the cursor inside the
-    epoch."""
+    """Fixed batches over the dataset, for `num_epochs` epochs (None:
+    forever), each epoch in the next permutation of `seed`'s RandomState
+    (or in order, without `shuffle`). The final partial batch of an epoch
+    is dropped, or with `drop_last=False` padded to the batch size by
+    repeating its last index, as the reference pads it. `skip_steps`
+    fast-forwards past the first N batches without building them: whole
+    epochs only advance the RNG, the rest moves the cursor inside the
+    epoch. A `DetectionDataset` decodes through a pool of `num_workers`
+    threads, on the `wire_format` "rgb" or "yuv420" (even decode_size)."""
+    if wire_format not in ("rgb", "yuv420"):
+        raise ValueError(f"unknown wire_format {wire_format!r}")
+    files = isinstance(dataset, DetectionDataset)
+    if wire_format == "yuv420" and not (files and dataset.decode_size % 2 == 0):
+        raise ValueError("wire_format='yuv420' needs an even decode_size")
     n = len(dataset)
-    per_epoch = n // batch_size
+    per_epoch = n // batch_size if drop_last else -(-n // batch_size)
     if per_epoch == 0:
         raise ValueError(f"{n} images cannot fill one batch of {batch_size}")
     rng = np.random.RandomState(seed)
     full_epochs, skip_batches = divmod(skip_steps, per_epoch)
     for _ in range(full_epochs):
-        rng.permutation(n)  # advance the RNG identically
-    while True:
-        order = rng.permutation(n)
-        for bi in range(skip_batches, per_epoch):  # mid-epoch resume cursor
-            yield dataset.batch(order[bi * batch_size:(bi + 1) * batch_size])
-        skip_batches = 0
+        if shuffle:
+            rng.permutation(n)  # advance the RNG identically
+    epoch = full_epochs
+    decoder = NativeDecoder(num_workers) if files else None
+    try:
+        while num_epochs is None or epoch < num_epochs:
+            order = rng.permutation(n) if shuffle else np.arange(n)
+            for bi in range(skip_batches, per_epoch):  # mid-epoch resume cursor
+                idx = order[bi * batch_size:(bi + 1) * batch_size]
+                if len(idx) < batch_size:  # pad the final partial batch
+                    idx = np.concatenate(
+                        [idx, np.repeat(idx[-1:], batch_size - len(idx))])
+                yield (dataset.batch(idx, decoder, wire_format) if files
+                       else dataset.batch(idx))
+            skip_batches = 0
+            epoch += 1
+    finally:
+        if decoder is not None:
+            decoder.close()
 
 
 class _Failure:
@@ -104,12 +281,12 @@ def prefetch_to_device(iterator: Iterator[Batch],
     side = torch.cuda.Stream(device) if cuda else None
 
     def to_device(batch: Batch):
-        host = [torch.from_numpy(np.ascontiguousarray(a)) for a in batch]
+        host = _map(lambda a: torch.from_numpy(np.ascontiguousarray(a)), batch)
         if not cuda:
-            return Batch(*host), None
-        pinned = [t.pin_memory() for t in host]
+            return host, None
+        pinned = _map(lambda t: t.pin_memory(), host)
         with torch.cuda.stream(side):
-            dev = Batch(*(t.to(device, non_blocking=True) for t in pinned))
+            dev = _map(lambda t: t.to(device, non_blocking=True), pinned)
             ready = torch.cuda.Event()
             ready.record(side)
         # the pinned buffers must outlive the copy: keep them with the batch
@@ -130,6 +307,11 @@ def prefetch_to_device(iterator: Iterator[Batch],
             out.put(end)
         except BaseException as e:  # noqa: BLE001 — re-raised in the consumer
             out.put(_Failure(e))
+        finally:
+            # a loader stopped early releases what it holds (its decode pool)
+            close = getattr(iterator, "close", None)
+            if close is not None:
+                close()
 
     thread = threading.Thread(target=producer, daemon=True)
     thread.start()
@@ -145,7 +327,7 @@ def prefetch_to_device(iterator: Iterator[Batch],
                 ready, _pinned = sync
                 stream = torch.cuda.current_stream(device)
                 stream.wait_event(ready)
-                for t in batch:
+                for t in _leaves(batch):
                     t.record_stream(stream)
             yield batch
     finally:

@@ -1,14 +1,22 @@
-"""Synthetic BDD100K-style scenes in memory (mirror of the numpy half of
-bdd100k_tpu/data/synthetic.py).
+"""Synthetic BDD100K-style scenes (mirror of bdd100k_tpu/data/synthetic.py):
+rendered in memory, or read from a directory of the reference's JPEGs.
 
 Same RandomState draws in the same order as the reference's
 `generate_synthetic_dataset`, so for one seed the frames are bit-equal to
 what the reference renders before its JPEG save, and the boxes equal what
 its label parser reads back. Nothing is written to disk and no image
 library is needed.
+
+`ensure_synthetic_dataset` reads a directory that the reference's
+`generate_synthetic_dataset` wrote (the JPEG encode needs PIL, which the
+port does not use), such as the committed
+`tests/fixtures/synth_val_seed1` (64 seed-1 val scenes).
 """
 
 from __future__ import annotations
+
+import json
+from pathlib import Path
 
 import numpy as np
 
@@ -130,3 +138,43 @@ def generate_synthetic_scenes(
         all_boxes.append(norm)
         all_labels.append(np.asarray(classes, np.int32))
     return frames, all_boxes, all_labels
+
+
+FIXTURE_DIR = Path(__file__).resolve().parents[2] / "tests" / "fixtures" / "synth_val_seed1"
+
+
+def ensure_synthetic_dataset(
+    out_dir: str | Path,
+    num_images: int = 32,
+    seed: int = 0,
+    max_objects: int = 12,
+    split: str = "train",
+) -> Path:
+    """The labels path of a complete synthetic split in `out_dir`:
+    `labels/<split>.json` with at least `num_images` records, and the JPEG
+    of each of the first `num_images` under `images/<split>/`. Unlike the
+    reference it never writes: a short directory raises. The files are
+    taken to be what the reference generated for `seed` and `max_objects`;
+    their first N records are the N-record set, as generation is
+    sequential from the seed."""
+    del seed, max_objects  # they made the files; nothing here redraws them
+    out_dir = Path(out_dir)
+    labels_path = out_dir / "labels" / f"{split}.json"
+    try:
+        records = json.loads(labels_path.read_text())
+    except (OSError, ValueError) as e:
+        records, why = [], f"{labels_path} cannot be read ({e})"
+    else:
+        why = f"{labels_path} holds {len(records)} records"
+    missing = [r["name"] for r in records[:num_images]
+               if not (out_dir / "images" / split / r["name"]).is_file()]
+    if len(records) < num_images or missing:
+        if missing:
+            why = f"{len(missing)} JPEGs are missing, {missing[0]} first"
+        raise FileNotFoundError(
+            f"no complete synthetic {split!r} split of {num_images} images in "
+            f"{out_dir}: {why}. The port reads the directory that the "
+            "reference's generate_synthetic_dataset writes and writes none "
+            f"itself; the committed {FIXTURE_DIR} holds the 64 seed-1 "
+            "'val' scenes")
+    return labels_path

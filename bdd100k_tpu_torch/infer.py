@@ -22,7 +22,7 @@ from bdd100k_tpu_torch.configs.detector_configs import DetectorConfig, get_confi
 from bdd100k_tpu_torch.data.augment import preprocess_eval_batch
 from bdd100k_tpu_torch.models.detector import DetectorBundle, build_detector
 from bdd100k_tpu_torch.ops.nms import Detections
-from bdd100k_tpu_torch.utils.weights import load_detector_npz
+from bdd100k_tpu_torch.utils.weights import restore_eval_weights
 
 
 class Predictor:
@@ -87,11 +87,14 @@ def load_predictor(
     device: str | torch.device = "cuda",
     dtype: torch.dtype = torch.bfloat16,
 ) -> Predictor:
-    """A `Predictor` for `config` with the weights of the .npz artifact
-    `ckpt`, whose recorded config name must match. `device` defaults to
-    CUDA and raises without it; the CPU runs only when asked for."""
+    """A `Predictor` for `config` with the weights of `ckpt`: a .npz
+    artifact (strict: every key, every shape; another recorded config name
+    warns) or a run directory of the port's trainer, its latest
+    checkpoint. `device` defaults to CUDA and raises without it; the CPU
+    runs only when asked for."""
     cfg = get_config(config) if isinstance(config, str) else config
+    if not Path(ckpt).exists():
+        raise FileNotFoundError(f"no weights at {ckpt}")
     bundle = build_detector(cfg, dtype=dtype, device=device)
-    sd, _ = load_detector_npz(ckpt, expect_config=cfg.name)
-    bundle.model.load_state_dict(sd)  # strict: every key, every shape
+    restore_eval_weights(bundle.model, ckpt, expect_config=cfg.name)
     return Predictor(bundle, batch_size)

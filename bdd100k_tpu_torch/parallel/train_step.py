@@ -1,4 +1,4 @@
-"""The train step (mirror of bdd100k_tpu/parallel/train_step.py).
+"""The train and eval steps (mirror of bdd100k_tpu/parallel/train_step.py).
 
 One step on the card: uint8 frames + padded GT → augment → forward (bf16
 convs, f32 BatchNorm in train mode) → matcher kernel → hard-negative
@@ -26,10 +26,15 @@ import numpy as np
 import torch
 
 from bdd100k_tpu_torch.configs.train_configs import TrainConfig
-from bdd100k_tpu_torch.data.augment import AugmentConfig, augment_batch
+from bdd100k_tpu_torch.data.augment import (
+    AugmentConfig,
+    augment_batch,
+    preprocess_eval_batch,
+)
 from bdd100k_tpu_torch.models.detector import DetectorBundle
 from bdd100k_tpu_torch.models.losses import LossBreakdown, ssd_loss
 from bdd100k_tpu_torch.ops import matcher
+from bdd100k_tpu_torch.ops.nms import Detections
 from bdd100k_tpu_torch.utils.device import resolve_device
 
 
@@ -199,5 +204,30 @@ def make_train_step(
             "loc_loss": lb.loc.detach(),
             "grad_norm": norm,
         }
+
+    return step
+
+
+def make_eval_step(bundle: DetectorBundle) -> Callable:
+    """step(images) → `Detections` on the bundle's device, fixed slots
+    (reference: bdd100k_tpu/parallel/train_step.py::make_eval_step, without
+    the mesh).
+
+    `images` is uint8 RGB (B, H, W, 3), a (y, uv) YUV 4:2:0 pair from the
+    yuv420 wire, or an already preprocessed float (B, S, S, 3). The
+    preprocess, the forward in the bundle's working type (its model in eval
+    mode) and the postprocess (the NMS kernel for CUDA tensors) run under
+    `torch.inference_mode()`. Nothing is read back and no shape depends on
+    the data, so the step never waits for the card: a caller can dispatch
+    the next batch before it fetches this one."""
+    size = bundle.config.image_size
+    model = bundle.model.eval()
+
+    def step(images) -> Detections:
+        with torch.inference_mode():
+            if isinstance(images, (tuple, list)) or images.dtype == torch.uint8:
+                images = preprocess_eval_batch(images, size)
+            loc, cls = model(images)
+            return bundle.postprocess(loc, cls)
 
     return step

@@ -1,11 +1,14 @@
-"""The reference's single-file weights artifact (.npz), read with numpy
-alone, and the mapping of flax trees onto the port's modules.
+"""The reference's single-file weights artifact (.npz), read and written
+with numpy alone, the mapping of flax trees onto the port's modules, and
+the one restore function of the eval entry points.
 
 Format (bdd100k_tpu/utils/weights.py): flat `params/<path>` and
 `batch_stats/<path>` keys, fp16 params, f32 batch stats, a JSON
-`__meta__` record (optional). The mapping fills every parameter and buffer of
-the port, so `model.load_state_dict(sd)` (strict) consumes every key and
-checks every shape.
+`__meta__` record (optional; `config`, `step`, `source` "params" or
+"ema"). The mapping fills every parameter and buffer of the port, so
+`model.load_state_dict(sd)` (strict) consumes every key and checks every
+shape. An artifact the port writes loads in the reference's
+`load_into_state`, and the reference's loads here.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import numpy as np
 import torch
 
 _META_KEY = "__meta__"
+FORMAT_VERSION = 1
 
 
 def _flatten(tree: Any, prefix: str = "") -> dict[str, np.ndarray]:
@@ -132,3 +136,88 @@ def load_detector_npz(
             stacklevel=2,
         )
     return state_dict_from_flax(params, stats), meta
+
+
+def save_detector_npz(
+    path: str | Path,
+    state_dict: Mapping[str, torch.Tensor],
+    *,
+    config_name: str,
+    step: int = 0,
+    source: str = "params",
+    param_dtype=np.float16,
+) -> dict:
+    """Write the port's state_dict as a single-file artifact → its meta.
+
+    As the reference's `save_detector_npz`: floating-point params at
+    `param_dtype` (fp16 by default), batch statistics in f32, and
+    `__meta__` with the config name, the step and `source`, the
+    provenance ("params", or "ema" for an EMA shadow's weights)."""
+    params, stats = flax_from_state_dict(state_dict)
+    flat: dict[str, np.ndarray] = {}
+    for k, v in params.items():
+        flat[f"params/{k}"] = (v.astype(param_dtype)
+                               if np.issubdtype(v.dtype, np.floating) else v)
+    for k, v in stats.items():
+        flat[f"batch_stats/{k}"] = np.asarray(v, np.float32)
+    meta = {
+        "format_version": FORMAT_VERSION,
+        "config": config_name,
+        "step": int(step),
+        "source": source,
+        "param_dtype": np.dtype(param_dtype).name,
+    }
+    flat[_META_KEY] = np.frombuffer(json.dumps(meta).encode("utf-8"),
+                                    np.uint8).copy()
+    np.savez_compressed(path, **flat)
+    return meta
+
+
+def restore_eval_weights(
+    model: torch.nn.Module,
+    path: str | Path,
+    *,
+    ema: bool = False,
+    expect_config: str | None = None,
+) -> int:
+    """Load eval weights into `model` in place → the step they were saved
+    at (reference: bdd100k_tpu/utils/weights.py::restore_eval_weights).
+
+    A path ending in .npz is an artifact: strict keys and shapes; with
+    `ema` it must have been exported from an EMA shadow. Anything else is
+    a run directory of the port's trainer (`utils/checkpoint.py`): the
+    latest `ckpt_<step>.pt` gives the params and BatchNorm statistics, and
+    with `ema` its EMA shadow replaces the params. A directory with no
+    checkpoint leaves the model as it is and gives step 0, as the
+    reference's restore does."""
+    if str(path).endswith(".npz"):
+        sd, meta = load_detector_npz(path, expect_config=expect_config)
+        if ema and meta.get("source") != "ema":
+            raise SystemExit(
+                f"--ema requested but {path} was exported from "
+                f"source={meta.get('source', 'unknown')!r}; re-export with "
+                "scripts/export_weights.py --ema")
+        model.load_state_dict(sd)
+        return int(meta.get("step", 0))
+    from bdd100k_tpu_torch.utils.checkpoint import CheckpointManager
+
+    if not Path(path).is_dir():
+        return 0
+    ckpt = CheckpointManager(path)
+    step = ckpt.latest_step()
+    if step is None:
+        return 0
+    device = next(model.parameters()).device
+    payload = torch.load(ckpt.directory / f"ckpt_{step}.pt",
+                         map_location=device, weights_only=True)
+    model.load_state_dict(payload["model"])
+    if ema:
+        shadow = payload["ema"]
+        if shadow is None:
+            raise SystemExit(
+                f"--ema requested but checkpoint step {step} has no "
+                "ema_params shadow — it was trained without --ema_decay")
+        with torch.no_grad():
+            for p, e in zip(model.parameters(), shadow, strict=True):
+                p.copy_(e)
+    return int(payload["step"])

@@ -5,10 +5,13 @@
 
 Builds the port's hand-written CUDA kernels from `bdd100k_tpu_torch/csrc`,
 holds each against its plain PyTorch version at the shapes the main paths
-give it, then drives the two main paths of the SSD-MobileNet-300 flagship
-at full width: serving (the committed trained artifact, through
-`load_predictor`) and training (the `bdd100k_tpu_torch.train` driver at
-batch 32 from the seeded init, with a checkpoint and a resume), and checks
+give it, then drives the three main paths of the SSD-MobileNet-300
+flagship at full width: serving (the committed trained artifact, through
+`load_predictor`), eval (`python -m bdd100k_tpu_torch.evaluate` from the
+64 committed seed-1 JPEGs to mAP, through the decode pool built from
+`native/decode_pool.cc`, held against the JAX fixture) and training (the
+`bdd100k_tpu_torch.train` trainer at batch 32 from the seeded init, with a
+checkpoint, a resume, and an eval of its own run directory), and checks
 that each path really ran through its kernels and that its output is
 right. NMS and the matcher are also held bit-equal at the edges of what
 they take (K from 1 to 256, greedy-trap chains; zero-area and whole-image
@@ -28,6 +31,7 @@ import json
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -45,8 +49,14 @@ REPS = 30   # timed graph replays per measurement (median reported)
 INNER = 10  # calls captured in one graph
 
 
+PHASE_LOG = ROOT / "chiprun_out" / "chip_smoke.jsonl"  # every phase line, whole
+
+
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    line = json.dumps({"phase": phase, **fields})
+    print(line, flush=True)
+    with PHASE_LOG.open("a") as f:
+        f.write(line + "\n")
 
 
 def nvidia_smi_line() -> str:
@@ -159,6 +169,9 @@ def nms_edge_cases(rng: np.random.RandomState, k: int):
 
 
 NMS_EDGE_K = (1, 37, 100, 200, 256)
+EVAL_BATCH = 32  # the reference eval's default batch
+# (B, K) at C=10: serving's b8 at the config's K=100 and at 200, and eval's
+NMS_SHAPES = ((8, 100), (8, 200), (EVAL_BATCH, 100))
 
 
 def nms_call(torch, nms, bx, vd) -> "torch.Tensor":
@@ -173,9 +186,9 @@ def nms_call(torch, nms, bx, vd) -> "torch.Tensor":
 def phase_kernel_nms(torch, nms) -> dict:
     rng = np.random.RandomState(0)
     out = {"max_abs_err": 0.0}
-    for k in (100, 200):
+    for b, k in NMS_SHAPES:
         launched = nms.LAUNCHES["greedy_suppress"]
-        b, c = 8, 10
+        c = 10
         for name, boxes, valid in nms_cases(rng, b, c, k):
             bx = torch.from_numpy(boxes).cuda()
             vd = torch.from_numpy(valid).cuda()
@@ -197,7 +210,8 @@ def phase_kernel_nms(torch, nms) -> dict:
         ms = time_ms(torch, lambda: nms.greedy_suppress_cuda(bx, vd, 0.45))
         plain_ms = time_ms(torch, lambda: nms.greedy_keep_mask(bx, vd, 0.45))
         bound, by = nms_bound_ms(b, c, k)
-        out[k] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+        out[k if b == 8 else f"b{b}"] = dict(ms=ms, plain_ms=plain_ms,
+                                             bound_ms=bound, bound_by=by)
         emit("kernel_nms", B=b, C=c, K=k, cases=6, keep_bits_equal=True,
              launches=nms.LAUNCHES["greedy_suppress"] - launched,
              launches_per_call=1,
@@ -345,6 +359,40 @@ def phase_kernel_depthwise(torch, dw) -> dict:
              bf16_within_one_ulp=True,
              launches=dw.LAUNCHES["depthwise3x3_s1"] - launched,
              bf16_plan=plan_fields(plan), **row)
+    totals["b32"] = phase_kernel_depthwise_eval(torch, dw, gen)
+    return totals
+
+
+def phase_kernel_depthwise_eval(torch, dw, gen) -> dict:
+    """The forward at the eval batch of 32, each stride-1 layer in bf16 and
+    f32, held and timed as the B=8 shapes are → bf16 totals over the nine
+    layers."""
+    import torch.nn.functional as F
+
+    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+                  max_abs_err=0.0)
+    for name, layers, hw, c in DW_SHAPES:
+        x32 = torch.randn((EVAL_BATCH, hw, hw, c), generator=gen, device="cuda")
+        k32 = torch.randn((3, 3, c), generator=gen, device="cuda") * 0.3
+        err32, tol32, errb = check_dw_forward(torch, dw, x32, k32, f"{name} b32")
+        row = {}
+        for dtype, x, k in (("bf16", x32.to(torch.bfloat16), k32.to(torch.bfloat16)),
+                            ("f32", x32, k32)):
+            xn = x.permute(0, 3, 1, 2)
+            wn = k.permute(2, 0, 1).unsqueeze(1).contiguous()
+            bound, by = dw_bound_ms(EVAL_BATCH, hw, hw, c, x.element_size())
+            row[dtype] = dict(
+                kernel_ms=time_ms(torch, lambda: dw.depthwise3x3_s1_cuda(x, k)),
+                plain_ms=time_ms(torch, lambda: dw.depthwise3x3_s1_plain(x, k)),
+                library_ms=time_ms(torch, lambda: F.conv2d(xn, wn, None, 1, 1, 1, c)),
+                bound_ms=bound, bound_by=by)
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            totals[key] += layers * row["bf16"]["kernel_ms" if key == "ms" else key]
+        totals["max_abs_err"] = max(totals["max_abs_err"], errb)
+        emit("kernel_depthwise_b32", layer=name, layers=layers,
+             shape=[EVAL_BATCH, hw, hw, c], f32_max_abs_err=err32, f32_tol=tol32,
+             bf16_max_abs_err_vs_plain_bf16=errb, bf16_within_one_ulp=True,
+             bf16_plan=plan_fields(dw._plan(EVAL_BATCH, hw, hw, c, 2)), **row)
     return totals
 
 
@@ -931,6 +979,313 @@ def phase_preselect(torch, infer, nms, frames) -> None:
     emit("preselect", **out)
 
 
+# ------------------------------------------------------------ eval: JPEG → mAP
+
+SYNTH_DIR = ROOT / "tests" / "fixtures" / "synth_val_seed1"
+EVAL_FIXTURE = ROOT / "tests" / "fixtures" / "torch_ref_eval_synth9k.npz"
+EVAL_SCENES = 64
+DECODE_PASSES = 10
+EVAL_F32_MAP_TOL = 0.002   # the decode route alone moves the reference by this
+EVAL_BF16_MAP_TOL = 0.01   # bf16 against the f32 fixture
+# what the reference's run_eval writes to --out with --coco_map
+EVAL_OUT_KEYS = {"mAP", "per_class", "coco", "images_per_sec", "num_images"}
+
+
+def phase_probe_host() -> int:
+    """Facts about the host, for the JPEG decode: cores, the C++ compiler,
+    libjpeg's header and library, the toolkit's nvJPEG. Passes whatever it
+    finds → the core count the decode pool uses."""
+    import glob
+    import os
+    import re
+    import shutil
+
+    def run(cmd):
+        try:
+            return subprocess.run(cmd, capture_output=True, text=True,
+                                  timeout=60).stdout
+        except OSError as e:
+            return f"({e})"
+
+    include = ["/usr/include", "/usr/include/x86_64-linux-gnu", "/usr/local/include"]
+    libdirs = ["/usr/lib/x86_64-linux-gnu", "/lib/x86_64-linux-gnu", "/usr/lib64",
+               "/usr/local/lib"]
+    jconfig = [p for d in include for p in glob.glob(f"{d}/jconfig.h")]
+    version = None
+    for p in jconfig:
+        m = re.search(r"#define\s+JPEG_LIB_VERSION\s+(\d+)", Path(p).read_text())
+        version = version or (m and int(m.group(1)))
+    cuda = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    nproc = len(os.sched_getaffinity(0))
+    emit("probe_host", nproc=nproc, cpu_count=os.cpu_count(),
+         gxx=(run(["g++", "--version"]).splitlines() or [None])[0]
+         if shutil.which("g++") else None,
+         jpeglib_h=[d for d in include if Path(d, "jpeglib.h").exists()],
+         jconfig_h=jconfig, jpeg_lib_version=version,
+         libjpeg_so=sorted(p for d in libdirs for p in glob.glob(f"{d}/libjpeg.so*")),
+         ldconfig_jpeg=[l.strip() for l in run(["ldconfig", "-p"]).splitlines()
+                        if "jpeg" in l],
+         nvjpeg_so=sorted(glob.glob(f"{cuda}/lib64/libnvjpeg.so*")),
+         nvjpeg_h=Path(cuda, "include", "nvjpeg.h").exists(),
+         decode_route="native/decode_pool.cc linked with the port's own "
+                      "decoder bdd100k_tpu_torch/csrc/jpeg (libjpeg-turbo's "
+                      "integer arithmetic), built by g++; no system libjpeg")
+    return nproc
+
+
+def phase_decode(nproc: int) -> float:
+    """Build the decode pool and decode the 64 committed JPEGs to 300²,
+    held to the sha256 of the reference's decode in the fixture (and to
+    the first four images' pixels) → the pool's imgs/s with `nproc`
+    workers over DECODE_PASSES passes."""
+    from bdd100k_tpu_torch.data.native_decode import NativeDecoder
+    from bdd100k_tpu_torch.utils import host_build
+
+    import hashlib
+
+    t0 = time.perf_counter()
+    lib = host_build.build()
+    build_s = time.perf_counter() - t0
+    ref = np.load(EVAL_FIXTURE)
+    names = [r["name"] for r in
+             json.loads((SYNTH_DIR / "labels" / "val.json").read_text())]
+    jpegs = [(SYNTH_DIR / "images" / "val" / n).read_bytes() for n in names]
+    dec = NativeDecoder(nproc)
+    try:
+        images = dec.decode_batch(jpegs, 300)
+        digests = [hashlib.sha256(im.tobytes()).hexdigest() for im in images]
+        match = sum(d == w.decode() for d, w in zip(digests, ref["image_sha256"]))
+        err4 = int(np.abs(images[:4].astype(int) - ref["images_first4"]).max())
+        t0 = time.perf_counter()
+        for _ in range(DECODE_PASSES):
+            dec.decode_batch(jpegs, 300)
+        rate = DECODE_PASSES * len(jpegs) / (time.perf_counter() - t0)
+    finally:
+        dec.close()
+    emit("decode", library=str(lib.relative_to(ROOT)), build_s=build_s,
+         jpegs=len(jpegs), size=300, sha256_match_reference=f"{match}/{len(jpegs)}",
+         first4_max_abs_diff=err4, workers=nproc, passes=DECODE_PASSES,
+         imgs_per_s=rate)
+    if match != len(jpegs) or err4:
+        raise AssertionError(f"decode differs from the reference's: {match}/"
+                             f"{len(jpegs)} images equal, first four max|Δ| {err4}")
+    return rate
+
+
+def fixture_detections():
+    ref = np.load(EVAL_FIXTURE)
+    return ref, types.SimpleNamespace(boxes=ref["boxes"], scores=ref["scores"],
+                                      classes=ref["classes"], valid=ref["valid"])
+
+
+def phase_eval_f32(torch, nms, dw, nproc: int, decode_rate: float) -> dict:
+    """`run_eval` on the card in f32 (TF32 off) over the 64 JPEGs at b32,
+    through both kernels, against the JAX f32 fixture: confident
+    detections agree both ways and mAP@0.5 within EVAL_F32_MAP_TOL; the
+    depthwise kernel runs 9 times a batch and NMS once; NMS's keep masks
+    on the path's own candidates equal the plain greedy's."""
+    from bdd100k_tpu_torch import evaluate
+    from bdd100k_tpu_torch.configs import get_config
+    from bdd100k_tpu_torch.models.detector import build_detector
+    from bdd100k_tpu_torch.utils.weights import restore_eval_weights
+
+    bundle = build_detector(get_config(CONFIG), dtype=torch.float32, device="cuda")
+    restore_eval_weights(bundle.model, ARTIFACT, expect_config=CONFIG)
+    dataset = evaluate.load_dataset(types.SimpleNamespace(
+        synthetic=EVAL_SCENES, synthetic_dir=str(SYNTH_DIR), max_boxes=100), 300)
+    args = types.SimpleNamespace(batch_size=EVAL_BATCH, num_workers=nproc,
+                                 wire="rgb", iou_threshold=0.5, coco_map=True,
+                                 dump_detections=None)
+    # record the detections leaving the eval step and what the path hands
+    # the suppression; both are looked up as module globals, so the
+    # wrappers sit on the real path and change nothing in the package
+    dets, captures = [], []
+    make_step, suppress = evaluate.make_eval_step, nms.greedy_suppress
+
+    def recording_step(b):
+        step = make_step(b)
+
+        def run(images):
+            dets.append(step(images))
+            return dets[-1]
+
+        return run
+
+    def recording_suppress(boxes, valid, iou_threshold):
+        keep = suppress(boxes, valid, iou_threshold)
+        captures.append(dict(boxes=boxes, valid=valid, keep=keep,
+                             iou_threshold=iou_threshold))
+        return keep
+
+    torch.cuda.synchronize()
+    nms.LAUNCHES["greedy_suppress"] = 0
+    dw.LAUNCHES["depthwise3x3_s1"] = 0
+    evaluate.make_eval_step, nms.greedy_suppress = recording_step, recording_suppress
+    try:
+        result = evaluate.run_eval(bundle, dataset, args)
+    finally:
+        evaluate.make_eval_step, nms.greedy_suppress = make_step, suppress
+    launches = dict(greedy_suppress=nms.LAUNCHES["greedy_suppress"],
+                    depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"])
+    batches = -(-EVAL_SCENES // EVAL_BATCH)
+    if launches != dict(greedy_suppress=batches, depthwise3x3_s1=9 * batches):
+        raise AssertionError(f"eval_f32 launches {launches} for {batches} batches")
+    for cap in captures:
+        want = nms.greedy_keep_mask(cap["boxes"].cpu(), cap["valid"].cpu(),
+                                    cap["iou_threshold"])
+        if not torch.equal(cap["keep"].cpu(), want):
+            raise AssertionError("eval NMS keep mask differs from the plain greedy")
+    det = types.SimpleNamespace(**{
+        f: torch.cat([getattr(d, f) for d in dets]).cpu().numpy()[:EVAL_SCENES]
+        for f in ("boxes", "scores", "classes", "valid")})
+    ref, want = fixture_detections()
+    if det.boxes.shape != (EVAL_SCENES, 200, 4) or not np.isfinite(det.boxes).all():
+        raise AssertionError("bad eval detections")
+    confident_agree(want, det, EVAL_SCENES)
+    confident_agree(det, want, EVAL_SCENES, thr=0.31)
+    map_diff = result["mAP"] - float(ref["map50"])
+    cap = captures[0]
+    bx, vd, thr = cap["boxes"], cap["valid"], cap["iou_threshold"]
+    b, c, k = vd.shape
+    bound, by = nms_bound_ms(b, c, k)
+    nms_path = dict(B=b, C=c, K=k, valid=int(vd.sum()), kept=int(cap["keep"].sum()),
+                    kernel_ms=time_ms(torch, lambda: nms.greedy_suppress_cuda(bx, vd, thr)),
+                    plain_ms=time_ms(torch, lambda: nms.greedy_keep_mask(bx, vd, thr)),
+                    bound_ms=bound, bound_by=by)
+    emit("eval_f32", scenes=EVAL_SCENES, batch=EVAL_BATCH, batches=batches,
+         launches=launches, map50=result["mAP"], fixture_map50=float(ref["map50"]),
+         map50_diff=map_diff, map50_tol=EVAL_F32_MAP_TOL,
+         coco_map=result["coco"]["mAP"], fixture_coco_map=float(ref["coco_map"]),
+         confident_detections_agree=True, nms_keep_bits_equal_in_path=True,
+         nms_on_eval_candidates=nms_path,
+         images_per_sec=result["images_per_sec"], decode_imgs_per_s=decode_rate)
+    if not abs(map_diff) <= EVAL_F32_MAP_TOL:
+        raise AssertionError(f"eval_f32 mAP {result['mAP']} is {map_diff} from the "
+                             f"fixture's {float(ref['map50'])}")
+    return nms_path
+
+
+def run_quietly(fn, argv, log_path: Path):
+    """`fn(argv)` with its stdout kept in a file → (its result, the stdout)."""
+    import contextlib
+    import io
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = fn(argv)
+    log_path.write_text(buf.getvalue())
+    return result, buf.getvalue()
+
+
+def phase_eval_bf16(torch, nms, dw, decode_rate: float) -> dict:
+    """The eval main path: `python -m bdd100k_tpu_torch.evaluate` as a
+    user types it, in bf16 on the card: mAP@0.5 within EVAL_BF16_MAP_TOL
+    of the f32 fixture, the dump and --out written."""
+    import os
+
+    from bdd100k_tpu_torch import evaluate
+
+    out_dir = RUNS / "eval"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    dump, out = out_dir / "detections.json", out_dir / "result.json"
+    argv = ["--synthetic", str(EVAL_SCENES),
+            "--synthetic_dir", os.path.relpath(SYNTH_DIR),
+            "--ckpt_dir", os.path.relpath(ARTIFACT),
+            "--batch_size", str(EVAL_BATCH), "--coco_map",
+            "--dump_detections", os.path.relpath(dump), "--out", os.path.relpath(out)]
+    torch.cuda.synchronize()
+    # the main path: counts to 0 just before, read just after
+    nms.LAUNCHES["greedy_suppress"] = 0
+    dw.LAUNCHES["depthwise3x3_s1"] = 0
+    t0 = time.perf_counter()
+    result, _ = run_quietly(evaluate.main, argv, RUNS / "eval_bf16_stdout.txt")
+    wall = time.perf_counter() - t0
+    launches = dict(greedy_suppress=nms.LAUNCHES["greedy_suppress"],
+                    depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"])
+    batches = -(-EVAL_SCENES // EVAL_BATCH)
+    if launches != dict(greedy_suppress=batches, depthwise3x3_s1=9 * batches):
+        raise AssertionError(f"eval_bf16 launches {launches} for {batches} batches")
+    ref, _ = fixture_detections()
+    entries = json.loads(dump.read_text())
+    saved = json.loads(out.read_text())
+    map_diff = result["mAP"] - float(ref["map50"])
+    emit("eval_bf16", command="python -m bdd100k_tpu_torch.evaluate " + " ".join(argv),
+         launches=launches, map50=result["mAP"], map50_diff_vs_f32_fixture=map_diff,
+         map50_tol=EVAL_BF16_MAP_TOL, coco_map=result["coco"]["mAP"],
+         images_per_sec=result["images_per_sec"], decode_imgs_per_s=decode_rate,
+         wall_s=wall, dump_entries=len(entries), out_keys=sorted(saved))
+    if not abs(map_diff) <= EVAL_BF16_MAP_TOL:
+        raise AssertionError(f"eval_bf16 mAP {result['mAP']} is {map_diff} from the "
+                             f"f32 fixture's {float(ref['map50'])}")
+    if len(entries) != EVAL_SCENES or not EVAL_OUT_KEYS <= set(saved):
+        raise AssertionError(f"dump holds {len(entries)} images; --out keys "
+                             f"{sorted(saved)}")
+    return dict(launches=launches, map50=result["mAP"],
+                images_per_sec=result["images_per_sec"], wall_s=wall)
+
+
+EVAL_REPEAT = 8  # the 64 scenes 8 times over: 16 batches, 15 of them timed
+
+
+def phase_eval_throughput(torch, nproc: int, decode_rate: float) -> dict:
+    """The eval's steady state: `run_eval` in bf16 over the 64 scenes
+    EVAL_REPEAT times over, without the dump or COCO, on each wire, beside
+    the decode pool's own rate (the pool decodes each batch on the loader's
+    thread while the card runs the one before)."""
+    from bdd100k_tpu_torch import evaluate
+    from bdd100k_tpu_torch.configs import get_config
+    from bdd100k_tpu_torch.models.detector import build_detector
+    from bdd100k_tpu_torch.utils.weights import restore_eval_weights
+
+    bundle = build_detector(get_config(CONFIG), device="cuda")
+    restore_eval_weights(bundle.model, ARTIFACT, expect_config=CONFIG)
+    dataset = evaluate.load_dataset(types.SimpleNamespace(
+        synthetic=EVAL_SCENES, synthetic_dir=str(SYNTH_DIR), max_boxes=100), 300)
+    dataset.records = dataset.records * EVAL_REPEAT
+    out = {}
+    for wire in ("rgb", "yuv420"):
+        args = types.SimpleNamespace(batch_size=EVAL_BATCH, num_workers=nproc,
+                                     wire=wire, iou_threshold=0.5, coco_map=False,
+                                     dump_detections=None)
+        t0 = time.perf_counter()
+        result = evaluate.run_eval(bundle, dataset, args)
+        out[wire] = dict(images_per_sec=result["images_per_sec"], map50=result["mAP"],
+                         wall_s=time.perf_counter() - t0)
+        if result["num_images"] != len(dataset) or not np.isfinite(result["mAP"]):
+            raise AssertionError(f"eval_throughput on {wire}: {result}")
+    emit("eval_throughput", images=len(dataset), batch=EVAL_BATCH,
+         timed_batches=len(dataset) // EVAL_BATCH - 1, dtype="bf16",
+         decode_imgs_per_s=decode_rate, decode_workers=nproc, **out)
+    return out
+
+
+def phase_eval_own_ckpt(torch) -> None:
+    """The trainer's own run directory (train_bf16's, 40 steps with an EMA
+    shadow) evaluated through `restore_eval_weights`, its params and its
+    EMA shadow: finite mAPs (40 steps from init learn little)."""
+    import os
+
+    from bdd100k_tpu_torch import evaluate
+
+    run_dir = RUNS / "train"
+    maps = {}
+    for name, extra in (("params", []), ("ema", ["--ema"])):
+        argv = ["--ckpt_dir", os.path.relpath(run_dir), "--synthetic", str(EVAL_SCENES),
+                "--synthetic_dir", os.path.relpath(SYNTH_DIR),
+                "--batch_size", str(EVAL_BATCH), *extra]
+        result, stdout = run_quietly(evaluate.main, argv,
+                                     RUNS / f"eval_own_{name}_stdout.txt")
+        if f"restored step {TRAIN_STEPS}" not in stdout:
+            raise AssertionError(f"eval of the run's {name} did not restore step "
+                                 f"{TRAIN_STEPS}")
+        maps[name] = dict(map50=result["mAP"], images_per_sec=result["images_per_sec"],
+                          num_images=result["num_images"])
+        if not np.isfinite(result["mAP"]):
+            raise AssertionError(f"non-finite mAP for the run's {name}")
+    emit("eval_own_ckpt", run_dir=str(run_dir.relative_to(ROOT)), step=TRAIN_STEPS,
+         **maps)
+
+
 # ---------------------------------------------------------------- train
 
 TRAIN_BATCH = 32
@@ -938,6 +1293,7 @@ TRAIN_SCENES = 64
 TRAIN_STEPS = 40
 TRAIN_WARMUP = 5     # steps left out of the step times
 RESUME_AT = 20
+TRAIN_EMA_DECAY = 0.999  # a shadow for eval_own_ckpt to evaluate
 # f32 step, card against CPU (TF32 off). At the trained weights the step
 # is ill-conditioned: on the CPU alone, a 1e-6 relative perturbation of the
 # input images moves the gradient (the first step's momentum buffer, clipped
@@ -1076,7 +1432,8 @@ def phase_train_bf16(torch, dw, matcher) -> dict:
     """The training main path: the driver at full width and batch 32 on 64
     rendered seed-0 train scenes (uint8 720p, augment on the card), 40
     steps from the seeded init with a checkpoint at step 20; then a second
-    run given only that checkpoint resumes and ends at 40."""
+    run given only that checkpoint resumes and ends at 40. The runs keep
+    an EMA shadow, which `phase_eval_own_ckpt` evaluates."""
     import shutil
 
     from bdd100k_tpu_torch import train as train_mod
@@ -1086,7 +1443,8 @@ def phase_train_bf16(torch, dw, matcher) -> dict:
     argv = ["--config", CONFIG, "--synthetic", str(TRAIN_SCENES),
             "--batch_size", str(TRAIN_BATCH), "--total_steps", str(TRAIN_STEPS),
             "--warmup_steps", "0", "--log_every", "1",
-            "--checkpoint_every", str(RESUME_AT), "--seed", "0"]
+            "--checkpoint_every", str(RESUME_AT), "--seed", "0",
+            "--ema_decay", str(TRAIN_EMA_DECAY)]
     torch.cuda.synchronize()
     # the main path: counts to 0 just before, read just after
     dw.LAUNCHES.update(depthwise3x3_s1=0, depthwise3x3_s1_fgrad=0)
@@ -1253,6 +1611,8 @@ def main() -> int:
               file=sys.stderr)
         return 2
     t_start = time.perf_counter()
+    PHASE_LOG.parent.mkdir(exist_ok=True)
+    PHASE_LOG.write_text("")
     from bdd100k_tpu_torch.data.synthetic import generate_synthetic_scenes
     from bdd100k_tpu_torch.ops import depthwise as dw
     from bdd100k_tpu_torch.ops import map_metric, matcher, matching
@@ -1296,22 +1656,32 @@ def main() -> int:
                                   frames, gt_boxes, gt_labels)
     phase_preselect(torch, infer, nms, frames)
 
-    # phases 7-10: training. f32 against the CPU, then the bf16 main path
+    # eval from JPEG files to mAP: the host's decode facts,
+    # the decode pool against the reference's pixels, the f32 eval path
+    # against the JAX fixture, then the bf16 main path through the CLI
+    nproc = phase_probe_host()
+    decode_rate = phase_decode(nproc)
+    eval_nms = phase_eval_f32(torch, nms, dw, nproc, decode_rate)
+    ev = phase_eval_bf16(torch, nms, dw, decode_rate)
+    phase_eval_throughput(torch, nproc, decode_rate)
+
+    # training: f32 against the CPU, then the bf16 main path
     # (the driver, with a resume), a profile of its step, the overfit check
     train_frames, train_boxes, train_labels = generate_synthetic_scenes(8, seed=0)
     phase_train_f32(torch, train_frames, train_boxes, train_labels)
     train = phase_train_bf16(torch, dw, matcher)
+    phase_eval_own_ckpt(torch)
     phase_train_profile(torch, train_frames, train_boxes, train_labels)
     phase_overfit(torch, train_frames, train_boxes, train_labels)
 
-    # phase 11: the kernel table; launches are those of the two main paths
-    # (serving 512 requests, 40 train steps)
-    tl = train["launches"]
+    # the kernel table; launches are those of the three main paths
+    # (serving 512 requests, eval 2 batches of 32, 40 train steps)
+    tl, el = train["launches"], ev["launches"]
     kernels = [
         dict(name="greedy_suppress", route="cuda",
              source="bdd100k_tpu_torch/csrc/nms.cu",
              replaces="bdd100k_tpu/ops/pallas_nms.py:124",
-             launches=launches["greedy_suppress"],
+             launches=launches["greedy_suppress"] + el["greedy_suppress"],
              max_abs_err=nms_t["max_abs_err"],
              ms=nms_t[100]["ms"], plain_ms=nms_t[100]["plain_ms"],
              bound_ms=nms_t[100]["bound_ms"], bound_by=nms_t[100]["bound_by"],
@@ -1319,7 +1689,8 @@ def main() -> int:
         dict(name="depthwise3x3_s1", route="cuda",
              source="bdd100k_tpu_torch/csrc/depthwise.cu",
              replaces="bdd100k_tpu/ops/pallas_depthwise.py:219",
-             launches=launches["depthwise3x3_s1"] + tl["depthwise3x3_s1"],
+             launches=(launches["depthwise3x3_s1"] + el["depthwise3x3_s1"]
+                       + tl["depthwise3x3_s1"]),
              max_abs_err=dw_t["max_abs_err"], ms=dw_t["ms"],
              plain_ms=dw_t["plain_ms"], bound_ms=dw_t["bound_ms"],
              bound_by="bytes", library_ms=dw_t["library_ms"]),
@@ -1340,14 +1711,16 @@ def main() -> int:
     ]
     emit("done", seconds=time.perf_counter() - t_start,
          launch_floor_ms=floor_ms,
-         nms_k200=nms_t[200], nms_path_inputs=nms_path,
+         nms_k200=nms_t[200], nms_b32=nms_t["b32"], nms_path_inputs=nms_path,
+         nms_eval_inputs=eval_nms, depthwise_fwd_b32=dw_t["b32"],
          depthwise_dx_b32_bf16=bwd_t["dx"],
          depthwise_dk_b32_bf16=bwd_t["dk"],
          note="kernel ms: NMS at B=8 C=10 K=100 (one launch a call); depthwise "
               "forward summed over the 9 stride-1 layers at B=8 bf16, filter "
               "gradient at B=32 bf16; matcher at B=32 M=100 A=8732 (one launch a "
-              "call); launches: depthwise3x3_s1 = 4608 serving + 720 training "
-              "(forward and dx)")
+              "call); launches: depthwise3x3_s1 = 4608 serving + 18 eval + 720 "
+              "training (forward and dx), greedy_suppress = 512 serving + 2 "
+              "eval")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
