@@ -4,6 +4,9 @@ bdd100k_tpu/evaluate.py).
     python -m bdd100k_tpu_torch.evaluate --synthetic 64 \\
         --synthetic_dir tests/fixtures/synth_val_seed1 \\
         --ckpt_dir artifacts/ssd_mobilenet_300_synth9k.npz
+    python -m bdd100k_tpu_torch.evaluate --config yolo_mobilenet_384 \\
+        --synthetic 64 --ckpt_dir artifacts/yolo_mobilenet_384_synth4kds.npz \\
+        --yolo_priors artifacts/yolo_priors_synth4k.json
     python -m bdd100k_tpu_torch.evaluate --labels val.json \\
         --image_dir images/val --ckpt_dir runs/ssd300 --ema
     # on the CPU (the plain versions of the kernels): add --device cpu
@@ -27,7 +30,7 @@ from pathlib import Path
 
 import torch
 
-from bdd100k_tpu_torch.configs import BDD100K_CLASSES, get_config
+from bdd100k_tpu_torch.configs import BDD100K_CLASSES, apply_yolo_priors, get_config
 from bdd100k_tpu_torch.data.pipeline import (
     DetectionDataset,
     make_loader,
@@ -41,15 +44,14 @@ from bdd100k_tpu_torch.parallel.train_step import make_eval_step
 from bdd100k_tpu_torch.utils.device import resolve_device
 from bdd100k_tpu_torch.utils.weights import restore_eval_weights
 
-_YOLO_CONFIGS = ("yolo_mobilenet_384", "yolo_tiny_64")
-
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="BDD100K detector eval (GPU)")
     p.add_argument("--config", default="ssd_mobilenet_300")
     p.add_argument("--yolo_priors", default=None,
-                   help="not ported yet (the YOLO head, ROADMAP Queue 1 "
-                        "item 7)")
+                   help="JSON of fitted YOLO priors (python -m "
+                        "bdd100k_tpu_torch.data.priors --out); the weights "
+                        "must have been trained with them")
     p.add_argument("--labels", default=None)
     p.add_argument("--image_dir", default=None)
     p.add_argument("--synthetic", type=int, default=0,
@@ -125,9 +127,6 @@ def refuse_unported(args) -> None:
     if args.multihost or args.sync_dir is not None or args.mesh_data is not None:
         later.append(("--multihost/--sync_dir/--mesh_data",
                       "item 11 (multi-GPU and multi-host)"))
-    if args.yolo_priors is not None or args.config in _YOLO_CONFIGS:
-        later.append(("--yolo_priors and the YOLO configs",
-                      "item 7 (the YOLO head)"))
     if args.config == "ssd_vgg16_512":
         later.append(("--config ssd_vgg16_512", "item 9 (VGG16-SSD512)"))
     if later:
@@ -269,6 +268,8 @@ def main(argv=None) -> dict:
     refuse_unported(args)
     device = resolve_device(args.device)
     det_cfg = get_config(args.config)
+    if args.yolo_priors:
+        det_cfg = apply_yolo_priors(det_cfg, args.yolo_priors)
     if args.per_class_topk is not None:
         det_cfg = dataclasses.replace(det_cfg, postprocess=dataclasses.replace(
             det_cfg.postprocess, per_class_topk=args.per_class_topk))

@@ -18,7 +18,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from bdd100k_tpu_torch.configs.detector_configs import DetectorConfig, get_config
+from bdd100k_tpu_torch.configs.detector_configs import (
+    DetectorConfig,
+    apply_yolo_priors,
+    get_config,
+)
 from bdd100k_tpu_torch.data.augment import preprocess_eval_batch
 from bdd100k_tpu_torch.models.detector import DetectorBundle, build_detector
 from bdd100k_tpu_torch.ops.nms import Detections
@@ -86,13 +90,18 @@ def load_predictor(
     batch_size: int = 1,
     device: str | torch.device = "cuda",
     dtype: torch.dtype = torch.bfloat16,
+    yolo_priors: str | Path | None = None,
 ) -> Predictor:
     """A `Predictor` for `config` with the weights of `ckpt`: a .npz
     artifact (strict: every key, every shape; another recorded config name
     warns) or a run directory of the port's trainer, its latest
-    checkpoint. `device` defaults to CUDA and raises without it; the CPU
+    checkpoint. `yolo_priors` replaces a YOLO config's anchor priors with
+    a fitted set (`apply_yolo_priors`), which the weights must have been
+    trained with. `device` defaults to CUDA and raises without it; the CPU
     runs only when asked for."""
     cfg = get_config(config) if isinstance(config, str) else config
+    if yolo_priors:
+        cfg = apply_yolo_priors(cfg, yolo_priors)
     if not Path(ckpt).exists():
         raise FileNotFoundError(f"no weights at {ckpt}")
     bundle = build_detector(cfg, dtype=dtype, device=device)

@@ -11,6 +11,7 @@ from bdd100k_tpu_torch.configs.detector_configs import DetectorConfig
 from bdd100k_tpu_torch.models.layers import init_params
 from bdd100k_tpu_torch.models.mobilenet import MobileNetBackbone
 from bdd100k_tpu_torch.models.ssd import SSDDetector
+from bdd100k_tpu_torch.models.yolo import YOLODetector
 from bdd100k_tpu_torch.ops import anchors as anchor_ops
 from bdd100k_tpu_torch.ops.nms import Detections
 from bdd100k_tpu_torch.ops.postprocess import postprocess
@@ -20,8 +21,9 @@ from bdd100k_tpu_torch.utils.device import resolve_device
 @dataclasses.dataclass
 class DetectorBundle:
     config: DetectorConfig
-    model: SSDDetector
+    model: SSDDetector | YOLODetector
     anchors: torch.Tensor           # (A, 4) center format, on the model's device
+    cell_sizes: torch.Tensor | None = None  # (A,) YOLO grid cell sizes; None for SSD
 
     def apply(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         with torch.inference_mode():
@@ -29,7 +31,8 @@ class DetectorBundle:
 
     def postprocess(self, loc_preds, cls_preds) -> Detections:
         return postprocess(
-            loc_preds, cls_preds, self.anchors, self.config.postprocess
+            loc_preds, cls_preds, self.anchors, self.config.postprocess,
+            self.cell_sizes,
         )
 
 
@@ -46,18 +49,24 @@ def build_detector(
     device. `device` defaults to CUDA and raises without it; the CPU runs
     only when asked for."""
     device = resolve_device(device)
-    if config.backbone != "mobilenet" or config.head != "ssd":
-        raise NotImplementedError(
-            f"{config.backbone}/{config.head} is not ported yet"
-        )
-    model = SSDDetector(
-        MobileNetBackbone(config.width, dtype),
-        config.feature_maps,
-        config.num_classes,
-        dtype,
-    )
+    if config.backbone != "mobilenet":
+        raise NotImplementedError(f"the {config.backbone} backbone is not ported yet")
+    backbone = MobileNetBackbone(config.width, dtype)
+    cell_sizes = None
+    if config.head == "ssd":
+        model = SSDDetector(backbone, config.feature_maps, config.num_classes,
+                            dtype)
+        anchors = anchor_ops.ssd_anchors(config.feature_maps)
+    elif config.head == "yolo":
+        model = YOLODetector(backbone, [len(p) for p in config.yolo_priors],
+                             config.num_classes, dtype)
+        anchors = anchor_ops.yolo_anchors(config.yolo_grids, config.yolo_priors)
+        cell_sizes = anchor_ops.yolo_cell_sizes(
+            config.yolo_grids, config.yolo_priors).to(device)
+    else:
+        raise ValueError(f"unknown head {config.head!r}")
     init_params(model, torch.Generator().manual_seed(seed))
     model = model.to(device=device, memory_format=torch.channels_last).eval()
-    anchors = anchor_ops.ssd_anchors(config.feature_maps).to(device)
-    assert anchors.shape[0] == config.num_anchors
-    return DetectorBundle(config, model, anchors)
+    if anchors.shape[0] != config.num_anchors:
+        raise ValueError(f"{anchors.shape[0]} anchors for {config.num_anchors}")
+    return DetectorBundle(config, model, anchors.to(device), cell_sizes)

@@ -1,7 +1,7 @@
-"""SSD multibox anchors (mirror of bdd100k_tpu/ops/anchors.py).
+"""SSD multibox and YOLO grid anchors (mirror of bdd100k_tpu/ops/anchors.py).
 
 Built in numpy f32 exactly as the reference builds them, so the two
-anchor tables are bit-equal; `ssd_anchors` hands back a torch tensor.
+anchor tables are bit-equal; each function hands back a torch tensor.
 """
 
 from __future__ import annotations
@@ -91,3 +91,44 @@ def ssd_anchors(
         )
         out.append(np.concatenate([centers, sizes], axis=-1).reshape(-1, 4))
     return torch.from_numpy(np.concatenate(out, axis=0).astype(np.float32))
+
+
+def yolo_anchors(
+    grid_sizes: Sequence[int],
+    priors_per_scale: Sequence[Sequence[tuple[float, float]]],
+) -> torch.Tensor:
+    """YOLO anchors: k prior (w, h) pairs at every grid cell of every scale
+    → (num_anchors, 4) center-format f32, laid out as `ssd_anchors`:
+    scales in order, then rows, cols, then the cell's priors."""
+    out = []
+    for g, priors in zip(grid_sizes, priors_per_scale):
+        priors = np.asarray(priors, dtype=np.float32)
+        coords = (np.arange(g, dtype=np.float32) + 0.5) / g
+        cy, cx = np.meshgrid(coords, coords, indexing="ij")
+        centers = np.stack([cx, cy], axis=-1)
+        k = priors.shape[0]
+        centers = np.broadcast_to(centers[:, :, None, :], (g, g, k, 2))
+        sizes = np.broadcast_to(priors[None, None, :, :], (g, g, k, 2))
+        out.append(np.concatenate([centers, sizes], axis=-1).reshape(-1, 4))
+    return torch.from_numpy(np.concatenate(out, axis=0).astype(np.float32))
+
+
+def yolo_cell_sizes(
+    grid_sizes: Sequence[int],
+    priors_per_scale: Sequence[Sequence[tuple[float, float]]],
+) -> torch.Tensor:
+    """Each anchor's grid cell size (1/g), aligned with `yolo_anchors`."""
+    out = [
+        np.full(g * g * len(priors), 1.0 / g, dtype=np.float32)
+        for g, priors in zip(grid_sizes, priors_per_scale)
+    ]
+    return torch.from_numpy(np.concatenate(out))
+
+
+# The reference's default BDD100K YOLO priors (normalized w, h): small,
+# medium and large objects on the stride-8, 16 and 32 grids.
+YOLO_BDD_PRIORS = (
+    ((0.02, 0.03), (0.04, 0.06), (0.08, 0.06)),
+    ((0.10, 0.12), (0.16, 0.10), (0.22, 0.22)),
+    ((0.35, 0.25), (0.55, 0.45), (0.85, 0.75)),
+)

@@ -1,4 +1,4 @@
-"""Box math (mirror of bdd100k_tpu/ops/boxes.py).
+"""Box math, SSD and YOLO codecs (mirror of bdd100k_tpu/ops/boxes.py).
 
 Corner boxes are (x1, y1, x2, y2), center boxes (cx, cy, w, h), both
 normalized to [0, 1]. Every function keeps the reference's operation order,
@@ -84,3 +84,27 @@ def encode_boxes(
     txy = (g[..., :2] - anchors[..., :2]) / (anchors[..., 2:] * vc)
     twh = torch.log(torch.clamp_min(g[..., 2:], _EPS) / anchors[..., 2:]) / vs
     return torch.cat([txy, twh], dim=-1)
+
+
+def yolo_decode_boxes(
+    deltas: torch.Tensor, anchors: torch.Tensor, cell_sizes: torch.Tensor
+) -> torch.Tensor:
+    """YOLO decode of raw (tx, ty, tw, th) (..., A, 4) against cell-center
+    anchors (A, 4) and their cell sizes (A,) → corner boxes:
+    c = c_a + (σ(t) − 0.5)·cell, wh = wh_a·exp(t_wh)."""
+    sxy = torch.sigmoid(deltas[..., :2])
+    cxy = anchors[..., :2] + (sxy - 0.5) * cell_sizes[..., None]
+    wh = anchors[..., 2:] * torch.exp(deltas[..., 2:])
+    return center_to_corner(torch.cat([cxy, wh], dim=-1))
+
+
+def yolo_encode_boxes(
+    boxes: torch.Tensor, anchors: torch.Tensor, cell_sizes: torch.Tensor
+) -> torch.Tensor:
+    """The inverse of `yolo_decode_boxes` in σ-space: corner boxes →
+    (σ(tx)*, σ(ty)*, tw, th), the post-sigmoid xy target
+    (c − c_a)/cell + 0.5 and tw = log(max(w, 1e-8) / w_a)."""
+    g = corner_to_center(boxes)
+    sxy = (g[..., :2] - anchors[..., :2]) / cell_sizes[..., None] + 0.5
+    twh = torch.log(torch.clamp_min(g[..., 2:], _EPS) / anchors[..., 2:])
+    return torch.cat([sxy, twh], dim=-1)

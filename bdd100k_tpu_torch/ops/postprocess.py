@@ -29,21 +29,27 @@ def postprocess(
     cls_preds: torch.Tensor,
     anchors_center: torch.Tensor,
     config: PostprocessConfig = PostprocessConfig(),
+    cell_sizes: torch.Tensor | None = None,
 ) -> Detections:
-    """loc (B, A, 4), cls (B, A, C+1) logits, anchors (A, 4) center →
-    `Detections` with fixed (B, max_detections) slots, clipped to [0, 1].
+    """loc (B, A, 4), cls (B, A, C+1) logits, anchors (A, 4) center, and
+    for decode_mode "yolo" each anchor's cell size (A,) → `Detections` with
+    fixed (B, max_detections) slots, clipped to [0, 1].
 
     The suppression runs the CUDA kernel for CUDA tensors and the plain
     greedy for CPU tensors."""
-    if config.decode_mode != "ssd":
-        raise NotImplementedError(
-            f"decode_mode={config.decode_mode!r} is not ported yet"
-        )
     loc_preds = loc_preds.to(torch.float32)
     cls_preds = cls_preds.to(torch.float32)
-    decoded = box_ops.decode_boxes(
-        loc_preds, anchors_center.to(loc_preds.device), config.variances
-    )
+    anchors_center = anchors_center.to(loc_preds.device)
+    if config.decode_mode == "yolo":
+        if cell_sizes is None:
+            raise ValueError('decode_mode="yolo" needs cell_sizes')
+        decoded = box_ops.yolo_decode_boxes(
+            loc_preds, anchors_center, cell_sizes.to(loc_preds.device))
+    elif config.decode_mode == "ssd":
+        decoded = box_ops.decode_boxes(loc_preds, anchors_center,
+                                       config.variances)
+    else:
+        raise ValueError(f"unknown decode_mode: {config.decode_mode}")
     decoded = box_ops.clip_boxes(decoded)
     scores = compute_scores(cls_preds, config.score_mode)
     return batched_class_nms(

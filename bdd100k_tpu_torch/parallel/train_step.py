@@ -2,7 +2,7 @@
 
 One step on the card: uint8 frames + padded GT → augment → forward (bf16
 convs, f32 BatchNorm in train mode) → matcher kernel → hard-negative
-mining + SSD loss → backward (the stride-1 depthwise layers on their dx
+mining + SSD or YOLO loss → backward (the stride-1 depthwise layers on their dx
 and dk kernels) → clip by global norm → weight decay → SGD with momentum
 (or Adam) at the reference's LR schedule → optional EMA. Nothing is read
 back to the host: the metrics come back as device scalars.
@@ -32,7 +32,8 @@ from bdd100k_tpu_torch.data.augment import (
     preprocess_eval_batch,
 )
 from bdd100k_tpu_torch.models.detector import DetectorBundle
-from bdd100k_tpu_torch.models.losses import LossBreakdown, ssd_loss
+from bdd100k_tpu_torch.models.losses import LossBreakdown, ssd_loss, yolo_loss
+from bdd100k_tpu_torch.ops import boxes as box_ops
 from bdd100k_tpu_torch.ops import matcher
 from bdd100k_tpu_torch.ops.nms import Detections
 from bdd100k_tpu_torch.utils.device import resolve_device
@@ -154,14 +155,20 @@ def ema_update(state: TrainState, decay: float) -> None:
 
 def detection_loss(bundle: DetectorBundle, loc_preds, cls_preds, gt_boxes,
                    gt_labels, gt_mask) -> LossBreakdown:
-    """The SSD loss over the matcher's output: the matcher kernel for CUDA
-    tensors, the oracle for CPU tensors."""
+    """The head's loss over the matcher's output: the matcher kernel for
+    CUDA tensors, the oracle for CPU tensors. YOLO encodes its own σ-space
+    targets from each anchor's matched GT box."""
     cfg = bundle.config
-    if cfg.head != "ssd":
-        raise NotImplementedError(f"the {cfg.head} loss is not ported yet")
     match = matcher.encode_targets(
         gt_boxes, gt_labels, gt_mask, bundle.anchors, cfg.match_threshold)
-    return ssd_loss(loc_preds, cls_preds, match, cfg.neg_pos_ratio)
+    if cfg.head == "ssd":
+        return ssd_loss(loc_preds, cls_preds, match, cfg.neg_pos_ratio)
+    matched_boxes = torch.gather(
+        gt_boxes, 1, match.matched_gt[..., None].expand(-1, -1, 4))
+    sigma_targets = box_ops.yolo_encode_boxes(
+        matched_boxes, bundle.anchors, bundle.cell_sizes)
+    return yolo_loss(loc_preds, cls_preds, match, sigma_targets,
+                     cfg.neg_pos_ratio)
 
 
 def make_train_step(

@@ -2,6 +2,8 @@
 
     python -m bdd100k_tpu_torch.train --config ssd_mobilenet_300 \\
         --synthetic 64 --total_steps 40 --ckpt_dir runs/ssd300
+    python -m bdd100k_tpu_torch.train --config yolo_mobilenet_384 \\
+        --batch_size 64 --synthetic 64 --ckpt_dir runs/yolo384
     # on the CPU, at the tiny test config:
     python -m bdd100k_tpu_torch.train --config ssd_tiny_64 --synthetic 8 \\
         --batch_size 4 --total_steps 3 --warmup_steps 0 --device cpu
@@ -26,7 +28,7 @@ import time
 
 import torch
 
-from bdd100k_tpu_torch.configs import TrainConfig, get_config
+from bdd100k_tpu_torch.configs import TrainConfig, apply_yolo_priors, get_config
 from bdd100k_tpu_torch.data.augment import AugmentConfig
 from bdd100k_tpu_torch.data.pipeline import (
     InMemoryDataset,
@@ -46,7 +48,13 @@ from bdd100k_tpu_torch.utils.metrics import MetricsLogger
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="BDD100K detector training (GPU)")
-    p.add_argument("--config", default="ssd_mobilenet_300")
+    p.add_argument("--config", default="ssd_mobilenet_300",
+                   help="ssd_mobilenet_300, yolo_mobilenet_384, or a tiny "
+                        "test config (ssd_tiny_64, yolo_tiny_64)")
+    p.add_argument("--yolo_priors", default=None,
+                   help="JSON of fitted YOLO priors (python -m "
+                        "bdd100k_tpu_torch.data.priors --out) in place of "
+                        "the config's")
     p.add_argument("--synthetic", type=int, default=0,
                    help="train on N rendered seed scenes held in memory "
                         "(the only data source until JPEG decode is ported)")
@@ -86,6 +94,8 @@ def main(argv=None):
     if not args.synthetic:
         raise SystemExit("need --synthetic N: JPEG datasets are not ported yet")
     det_cfg = get_config(args.config)
+    if args.yolo_priors:
+        det_cfg = apply_yolo_priors(det_cfg, args.yolo_priors)
     lr_kw = {}
     if args.lr_boundaries is not None:
         lr_kw["lr_boundaries"] = tuple(

@@ -5,19 +5,24 @@
 
 Builds the port's hand-written CUDA kernels from `bdd100k_tpu_torch/csrc`,
 holds each against its plain PyTorch version at the shapes the main paths
-give it, then drives the three main paths of the SSD-MobileNet-300
-flagship at full width: serving (the committed trained artifact, through
+give it, then drives the main paths of two model families at full width.
+SSD-MobileNet-300: serving (the committed trained artifact, through
 `load_predictor`), eval (`python -m bdd100k_tpu_torch.evaluate` from the
 64 committed seed-1 JPEGs to mAP, through the decode pool built from
 `native/decode_pool.cc`, held against the JAX fixture) and training (the
 `bdd100k_tpu_torch.train` trainer at batch 32 from the seeded init, with a
-checkpoint, a resume, and an eval of its own run directory), and checks
-that each path really ran through its kernels and that its output is
-right. NMS and the matcher are also held bit-equal at the edges of what
-they take (K from 1 to 256, greedy-trap chains; zero-area and whole-image
-GTs, M = 1, SSD512's and the tiny config's anchors), each call one launch,
-beside the launch floor of the card. Each phase prints one JSON line; any
-failure raises, so the exit code is not 0.
+checkpoint, a resume, and an eval of its own run directory).
+YOLO-MobileNet-384: the four kernels again at its shapes (the depthwise
+forward at B=8 and 32, dx and dk at B=64, the matcher at B=64 on its 9072
+anchors), serving on its trained artifact, eval of both committed YOLO
+artifacts with the priors each was trained with against their JAX
+fixture, an f32 train step against the CPU and the trainer at batch 64.
+Each path is checked to have run through its kernels and to give the
+right output. NMS and the matcher are also held bit-equal at the edges of
+what they take (K from 1 to 256, greedy-trap chains; zero-area and
+whole-image GTs, M = 1, SSD512's, the tiny config's and YOLO's anchors),
+each call one launch, beside the launch floor of the card. Each phase
+prints one JSON line; any failure raises, so the exit code is not 0.
 The second-to-last lines are the kernel table (`{"kernels": [...]}`) and
 the card's name and power limit as nvidia-smi gives them; the last line is
 `{"ok": true, "device": {...}}`.
@@ -240,7 +245,7 @@ def phase_kernel_nms(torch, nms) -> dict:
     return out
 
 
-def phase_nms_path_inputs(torch, nms, captures) -> dict:
+def phase_nms_path_inputs(torch, nms, captures, phase="kernel_nms_path_inputs") -> dict:
     """The kernel on the serving path's own candidates, as `phase_path_f32`
     recorded them (a b8 batch, and its first image as a b1 request would
     give them), beside the plain greedy's time; keep bits held equal."""
@@ -260,7 +265,7 @@ def phase_nms_path_inputs(torch, nms, captures) -> dict:
             kernel_ms=time_ms(torch, lambda: nms.greedy_suppress_cuda(bx, vd, thr)),
             plain_ms=time_ms(torch, lambda: nms.greedy_keep_mask(bx, vd, thr)),
             bound_ms=bound, bound_by=by)
-    emit("kernel_nms_path_inputs", keep_bits_equal=True, **out)
+    emit(phase, keep_bits_equal=True, **out)
     return out
 
 
@@ -314,12 +319,53 @@ def check_dw_forward(torch, dw, x32, k32, what: str) -> tuple[float, float, floa
     return err32, tol32, float((yb.float() - plainb.float()).abs().max())
 
 
-def phase_kernel_depthwise(torch, dw) -> dict:
+def dw_layer_times(torch, dw, x, k, c: int) -> dict:
+    """The forward kernel, its plain version and cuDNN's grouped conv on
+    one input → their ms, the bound and the ratios."""
     import torch.nn.functional as F
 
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    xn = x.permute(0, 3, 1, 2)                      # channels_last view
+    wn = k.permute(2, 0, 1).unsqueeze(1).contiguous()
+    b, h, w, _ = x.shape
+    ms = time_ms(torch, lambda: dw.depthwise3x3_s1_cuda(x, k))
+    lib_ms = time_ms(torch, lambda: F.conv2d(xn, wn, None, 1, 1, 1, c))
+    bound, by = dw_bound_ms(b, h, w, c, x.element_size())
+    return dict(kernel_ms=ms,
+                plain_ms=time_ms(torch, lambda: dw.depthwise3x3_s1_plain(x, k)),
+                library_ms=lib_ms, bound_ms=bound, bound_by=by,
+                kernel_over_bound=ms / bound, kernel_over_library=ms / lib_ms)
+
+
+def dw_forward_layers(torch, dw, gen, shapes, b: int, phase: str) -> dict:
+    """The forward at each stride-1 layer of `shapes` at batch b, in bf16
+    and f32, against its plain version (f32 within 1e-5·max, bf16 within
+    one ulp) and timed beside cuDNN; one line each → bf16 totals over the
+    nine layers."""
     totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
                   max_abs_err=0.0)
+    for name, layers, hw, c in shapes:
+        launched = dw.LAUNCHES["depthwise3x3_s1"]
+        x32 = torch.randn((b, hw, hw, c), generator=gen, device="cuda")
+        k32 = torch.randn((3, 3, c), generator=gen, device="cuda") * 0.3
+        err32, tol32, errb = check_dw_forward(torch, dw, x32, k32, f"{phase} {name}")
+        launches = dw.LAUNCHES["depthwise3x3_s1"] - launched
+        row = {dtype: dw_layer_times(torch, dw, x, k, c) for dtype, x, k in (
+            ("bf16", x32.to(torch.bfloat16), k32.to(torch.bfloat16)), ("f32", x32, k32))}
+        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
+            totals[key] += layers * row["bf16"]["kernel_ms" if key == "ms" else key]
+        totals["max_abs_err"] = max(totals["max_abs_err"], errb)
+        emit(phase, layer=name, layers=layers, shape=[b, hw, hw, c],
+             f32_max_abs_err=err32, f32_tol=tol32,
+             bf16_max_abs_err_vs_plain_bf16=errb, bf16_within_one_ulp=True,
+             launches=launches, bf16_plan=plan_fields(dw._plan(b, hw, hw, c, 2)),
+             f32_plan=plan_fields(dw._plan(b, hw, hw, c, 4)), **row)
+    return totals
+
+
+def phase_kernel_depthwise(torch, dw) -> dict:
+    """The forward at the edge shapes, then at the nine SSD300 layers at
+    B=8 (serving) and B=32 (eval) → bf16 totals (B=32's under "b32")."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
     edge_err = 0.0
     for shape in DW_EDGE_SHAPES:
         x32 = torch.randn(shape, generator=gen, device="cuda")
@@ -329,70 +375,10 @@ def phase_kernel_depthwise(torch, dw) -> dict:
     emit("kernel_depthwise_edges", shapes=[list(s) for s in DW_EDGE_SHAPES],
          dtypes=["f32", "bf16"], within_tolerance=True,
          bf16_max_abs_err_vs_plain_bf16=edge_err)
-    totals["max_abs_err"] = edge_err
-    for name, layers, hw, c in DW_SHAPES:
-        launched = dw.LAUNCHES["depthwise3x3_s1"]
-        x32 = torch.randn((DW_BATCH, hw, hw, c), generator=gen, device="cuda")
-        k32 = torch.randn((3, 3, c), generator=gen, device="cuda") * 0.3
-        err32, tol32, errb = check_dw_forward(torch, dw, x32, k32, name)
-        xb, kb = x32.to(torch.bfloat16), k32.to(torch.bfloat16)
-        row = {}
-        for dtype, x, k in (("bf16", xb, kb), ("f32", x32, k32)):
-            xn = x.permute(0, 3, 1, 2)                      # channels_last view
-            wn = k.permute(2, 0, 1).unsqueeze(1).contiguous()
-            ms = time_ms(torch, lambda: dw.depthwise3x3_s1_cuda(x, k))
-            plain_ms = time_ms(torch, lambda: dw.depthwise3x3_s1_plain(x, k))
-            lib_ms = time_ms(torch, lambda: F.conv2d(xn, wn, None, 1, 1, 1, c))
-            bound, by = dw_bound_ms(DW_BATCH, hw, hw, c, x.element_size())
-            row[dtype] = dict(kernel_ms=ms, plain_ms=plain_ms,
-                              library_ms=lib_ms, bound_ms=bound, bound_by=by,
-                              kernel_over_bound=ms / bound,
-                              kernel_over_library=ms / lib_ms)
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
-            src = "kernel_ms" if key == "ms" else key
-            totals[key] += layers * row["bf16"][src]
-        totals["max_abs_err"] = max(totals["max_abs_err"], errb)
-        plan = dw._plan(DW_BATCH, hw, hw, c, 2)
-        emit("kernel_depthwise", layer=name, layers=layers,
-             shape=[DW_BATCH, hw, hw, c], f32_max_abs_err=err32,
-             f32_tol=tol32, bf16_max_abs_err_vs_plain_bf16=errb,
-             bf16_within_one_ulp=True,
-             launches=dw.LAUNCHES["depthwise3x3_s1"] - launched,
-             bf16_plan=plan_fields(plan), **row)
-    totals["b32"] = phase_kernel_depthwise_eval(torch, dw, gen)
-    return totals
-
-
-def phase_kernel_depthwise_eval(torch, dw, gen) -> dict:
-    """The forward at the eval batch of 32, each stride-1 layer in bf16 and
-    f32, held and timed as the B=8 shapes are → bf16 totals over the nine
-    layers."""
-    import torch.nn.functional as F
-
-    totals = dict(ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-                  max_abs_err=0.0)
-    for name, layers, hw, c in DW_SHAPES:
-        x32 = torch.randn((EVAL_BATCH, hw, hw, c), generator=gen, device="cuda")
-        k32 = torch.randn((3, 3, c), generator=gen, device="cuda") * 0.3
-        err32, tol32, errb = check_dw_forward(torch, dw, x32, k32, f"{name} b32")
-        row = {}
-        for dtype, x, k in (("bf16", x32.to(torch.bfloat16), k32.to(torch.bfloat16)),
-                            ("f32", x32, k32)):
-            xn = x.permute(0, 3, 1, 2)
-            wn = k.permute(2, 0, 1).unsqueeze(1).contiguous()
-            bound, by = dw_bound_ms(EVAL_BATCH, hw, hw, c, x.element_size())
-            row[dtype] = dict(
-                kernel_ms=time_ms(torch, lambda: dw.depthwise3x3_s1_cuda(x, k)),
-                plain_ms=time_ms(torch, lambda: dw.depthwise3x3_s1_plain(x, k)),
-                library_ms=time_ms(torch, lambda: F.conv2d(xn, wn, None, 1, 1, 1, c)),
-                bound_ms=bound, bound_by=by)
-        for key in ("ms", "plain_ms", "bound_ms", "library_ms"):
-            totals[key] += layers * row["bf16"]["kernel_ms" if key == "ms" else key]
-        totals["max_abs_err"] = max(totals["max_abs_err"], errb)
-        emit("kernel_depthwise_b32", layer=name, layers=layers,
-             shape=[EVAL_BATCH, hw, hw, c], f32_max_abs_err=err32, f32_tol=tol32,
-             bf16_max_abs_err_vs_plain_bf16=errb, bf16_within_one_ulp=True,
-             bf16_plan=plan_fields(dw._plan(EVAL_BATCH, hw, hw, c, 2)), **row)
+    totals = dw_forward_layers(torch, dw, gen, DW_SHAPES, DW_BATCH, "kernel_depthwise")
+    totals["max_abs_err"] = max(totals["max_abs_err"], edge_err)
+    totals["b32"] = dw_forward_layers(torch, dw, gen, DW_SHAPES, EVAL_BATCH,
+                                      "kernel_depthwise_b32")
     return totals
 
 
@@ -456,12 +442,15 @@ def check_dw_backward(torch, dw, x32, g32, k32, what: str) -> dict:
     return out
 
 
-def phase_kernel_depthwise_bwd(torch, dw) -> dict:
+def phase_kernel_depthwise_bwd(torch, dw, shapes=DW_SHAPES, b=BWD_BATCH,
+                               edges=DW_EDGE_SHAPES,
+                               phase="kernel_depthwise_bwd") -> dict:
     """dx and dk against their plain versions at the nine stride-1 layer
-    shapes, B=32, and at the edge shapes, bf16 and f32, dk the same bits
-    on two calls; times in bf16, the main path's type, with cuDNN's
-    grouped conv (dx) and its weight gradient `torch.nn.grad.conv2d_weight`
-    (dk) as the library yardsticks, and dk's two passes timed apart."""
+    shapes at the train step's batch, and at the edge shapes, bf16 and
+    f32, dk the same bits on two calls; times in bf16, the main path's
+    type, with cuDNN's grouped conv (dx) and its weight gradient
+    `torch.nn.grad.conv2d_weight` (dk) as the library yardsticks, and dk's
+    two passes timed apart."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -470,21 +459,21 @@ def phase_kernel_depthwise_bwd(torch, dw) -> dict:
                          partials_ms=0.0, sum_ms=0.0),
               "max_abs_err": 0.0}
     edge_err = 0.0
-    for shape in DW_EDGE_SHAPES:
+    for shape in edges:
         x32, g32 = (torch.randn(shape, generator=gen, device="cuda") for _ in range(2))
         k32 = torch.randn((3, 3, shape[-1]), generator=gen, device="cuda") * 0.3
         errs = check_dw_backward(torch, dw, x32, g32, k32, f"edge {shape}")
         edge_err = max(edge_err, *(e["dk_max_abs_err"] for e in errs.values()))
-    emit("kernel_depthwise_bwd_edges", shapes=[list(s) for s in DW_EDGE_SHAPES],
-         dtypes=["bf16", "f32"], within_tolerance=True, dk_bit_equal_twice=True,
-         dk_max_abs_err=edge_err)
+    if edges:
+        emit("kernel_depthwise_bwd_edges", shapes=[list(s) for s in edges],
+             dtypes=["bf16", "f32"], within_tolerance=True, dk_bit_equal_twice=True,
+             dk_max_abs_err=edge_err)
     totals["max_abs_err"] = edge_err
-    for name, layers, hw, c in DW_SHAPES:
-        b = BWD_BATCH
+    for name, layers, hw, c in shapes:
         x32 = torch.randn((b, hw, hw, c), generator=gen, device="cuda")
         g32 = torch.randn((b, hw, hw, c), generator=gen, device="cuda")
         k32 = torch.randn((3, 3, c), generator=gen, device="cuda") * 0.3
-        row = check_dw_backward(torch, dw, x32, g32, k32, name)
+        row = check_dw_backward(torch, dw, x32, g32, k32, f"{phase} {name}")
         for tag, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
             x, g, k = x32.to(dtype), g32.to(dtype), k32.to(dtype)
             kf = k.flip(0, 1).contiguous()
@@ -524,7 +513,7 @@ def phase_kernel_depthwise_bwd(torch, dw) -> dict:
                              dx_plan=plan_fields(dw._plan(b, hw, hw, c, 2)),
                              dk_plan=plan_fields(dw._plan(b, hw, hw, c, 2, "fgrad")))
             row[tag].update(times)
-        emit("kernel_depthwise_bwd", layer=name, layers=layers,
+        emit(phase, layer=name, layers=layers,
              shape=[b, hw, hw, c], dx_tolerance="f32: 1e-5·max|ref|; bf16: one "
              "bf16 ulp of the output", dk_tolerance=f"{DK_RTOL}·max|ref|",
              dk_bit_equal_twice=True, **row)
@@ -558,12 +547,14 @@ def ptxas_report(log: str) -> list[dict]:
 MATCH_B, MATCH_M = 32, 100
 
 
-def matcher_cases(torch, anchors, rng):
+def matcher_cases(torch, anchors, rng, b: int = MATCH_B):
     """(name, gt_boxes (B, M, 4), gt_labels (B, M) int32, gt_mask (B, M))
-    numpy cases at B=32, M=100 against the 8732 SSD300 anchors."""
+    numpy cases at M=100 against an anchor set (SSD300's 8732 at B=32 on
+    the SSD path, YOLO's 9072 at B=64 on the YOLO path) → (cases, the
+    anchor of each GT whose IoU with it is exactly 0.5)."""
     from bdd100k_tpu_torch.ops import boxes as box_ops
 
-    b, m = MATCH_B, MATCH_M
+    m = MATCH_M
     corners = box_ops.center_to_corner(anchors.cpu()).numpy()
 
     def random_gt():
@@ -689,13 +680,11 @@ def check_match(torch, got, want, what: str) -> float:
     return float((got.loc_targets - want.loc_targets).abs().max())
 
 
-def phase_kernel_matcher(torch, matcher, matching, anchors) -> dict:
-    from bdd100k_tpu_torch.configs import tiny_test_config
-    from bdd100k_tpu_torch.ops import boxes as box_ops
-    from bdd100k_tpu_torch.ops.anchors import SSD512_FEATURE_MAPS, ssd_anchors
-
-    rng = np.random.RandomState(0)
-    cases, half_anchor = matcher_cases(torch, anchors, rng)
+def hold_matcher_cases(torch, matcher, matching, anchors, rng, b: int):
+    """`matcher_cases` at batch b through the kernel, one launch each,
+    held to the oracle → (cases, the IoU-0.5 GTs' anchors, how many of
+    those the oracle leaves negative, loc max|Δ|); raises when none is."""
+    cases, half_anchor = matcher_cases(torch, anchors, rng, b)
     loc_err = 0.0
     half_negative = 0
     for name, gtb, gtl, gtm in cases:
@@ -708,17 +697,23 @@ def phase_kernel_matcher(torch, matcher, matching, anchors) -> dict:
             # the strict threshold decides them
             half_negative = int(sum(not bool(want.positive[i, a])
                                     for i, a in enumerate(half_anchor)))
-        loc_err = max(loc_err, check_match(torch, got, want, f"case {name}"))
+        loc_err = max(loc_err, check_match(torch, got, want, f"case {name}, B={b}"))
     if half_negative == 0:
         raise AssertionError("no anchor at IoU exactly 0.5 is left to the threshold")
-    # the edge cases against SSD300's, SSD512's and ssd_tiny_64's anchors
-    sets = {"ssd300": anchors, "ssd512": ssd_anchors(SSD512_FEATURE_MAPS).cuda(),
-            "ssd_tiny_64": ssd_anchors(tiny_test_config("ssd").feature_maps).cuda()}
-    edge_rng = np.random.RandomState(1)
+    return cases, half_anchor, half_negative, loc_err
+
+
+def hold_matcher_edges(torch, matcher, matching, sets: dict, rng, b: int = 8):
+    """`matcher_edge_cases` at batch b against each named anchor set,
+    through the kernel, held to the oracle → (case names, each set's A and
+    plan, loc max|Δ|)."""
+    from bdd100k_tpu_torch.ops import boxes as box_ops
+
+    loc_err = 0.0
     edges, names = {}, []
     for set_name, anc in sets.items():
         corners = box_ops.center_to_corner(anc.cpu()).numpy()
-        for name, gtb, gtl, gtm in matcher_edge_cases(edge_rng, corners):
+        for name, gtb, gtl, gtm in matcher_edge_cases(rng, corners, b=b):
             names.append(f"{set_name} {name}")
             args = [torch.from_numpy(a).cuda() for a in (gtb, gtl, gtm)] + [anc]
             got = matcher_call(torch, matcher, args)
@@ -729,6 +724,21 @@ def phase_kernel_matcher(torch, matcher, matching, anchors) -> dict:
                 raise AssertionError("a zero-area GT did not take anchor 0")
         edges[set_name] = dict(A=int(anc.shape[0]), plan=matcher._plan(
             int(anc.shape[0]), MATCH_M)._asdict())
+    return names, edges, loc_err
+
+
+def phase_kernel_matcher(torch, matcher, matching, anchors) -> dict:
+    from bdd100k_tpu_torch.configs import tiny_test_config
+    from bdd100k_tpu_torch.ops.anchors import SSD512_FEATURE_MAPS, ssd_anchors
+
+    cases, half_anchor, half_negative, loc_err = hold_matcher_cases(
+        torch, matcher, matching, anchors, np.random.RandomState(0), MATCH_B)
+    # the edge cases against SSD300's, SSD512's and ssd_tiny_64's anchors
+    sets = {"ssd300": anchors, "ssd512": ssd_anchors(SSD512_FEATURE_MAPS).cuda(),
+            "ssd_tiny_64": ssd_anchors(tiny_test_config("ssd").feature_maps).cuda()}
+    names, edges, edge_err = hold_matcher_edges(torch, matcher, matching, sets,
+                                                np.random.RandomState(1))
+    loc_err = max(loc_err, edge_err)
     emit("kernel_matcher_edges", cases=names, anchor_sets=edges,
          discrete_outputs_bit_equal=True, launches_per_call=1)
     name, gtb, gtl, gtm = cases[0]
@@ -784,10 +794,15 @@ def confident_agree(a, b, n: int, thr: float = 0.3, tol: float = 1e-3) -> None:
                                      f"{a.scores[i, j]:.4f}) has no match")
 
 
-def phase_path_f32(torch, infer, nms, dw, frames) -> None:
-    pred = infer.load_predictor(CONFIG, ARTIFACT, batch_size=8, device="cuda",
+def phase_path_f32(torch, infer, nms, dw, frames, config=CONFIG, artifact=ARTIFACT,
+                   phase="path_f32") -> list:
+    """The serving path in f32 on the card against the same port on the
+    CPU: logits within 2e-3, confident detections agreeing both ways, 9
+    depthwise and 1 NMS launch a batch, and NMS's keep masks on the path's
+    own candidates equal to the plain greedy's → those candidates."""
+    pred = infer.load_predictor(config, artifact, batch_size=8, device="cuda",
                                 dtype=torch.float32)
-    cpu = infer.load_predictor(CONFIG, ARTIFACT, batch_size=8, device="cpu",
+    cpu = infer.load_predictor(config, artifact, batch_size=8, device="cpu",
                                dtype=torch.float32)
     batches = [frames[i:i + 8] for i in range(0, len(frames), 8)]
     # record what the path hands the suppression: `batched_class_nms` looks
@@ -815,7 +830,7 @@ def phase_path_f32(torch, infer, nms, dw, frames) -> None:
                     depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"])
     if launches != dict(greedy_suppress=len(batches),
                         depthwise3x3_s1=9 * len(batches)):
-        raise AssertionError(f"path_f32 launches {launches} for {len(batches)} batches")
+        raise AssertionError(f"{phase} launches {launches} for {len(batches)} batches")
     # the NMS kernel inside the real path: its keep mask equals the plain
     # greedy on a CPU copy of the inputs the path handed it
     if len(captures) != len(batches):
@@ -843,7 +858,8 @@ def phase_path_f32(torch, infer, nms, dw, frames) -> None:
         assert det.boxes.shape == (len(fb), 200, 4) and np.isfinite(det.boxes).all()
         confident_agree(det, ref, len(fb))
         confident_agree(ref, det, len(fb), thr=0.31)
-    emit("path_f32", frames=len(frames), batches=len(batches), launches=launches,
+    emit(phase, config=config, weights=artifact.name, frames=len(frames),
+         batches=len(batches), launches=launches,
          nms_keep_bits_equal_in_path=True, logits_max_abs_err_vs_cpu=max_err,
          logits_atol=2e-3, confident_detections_agree=True)
     return captures
@@ -871,8 +887,12 @@ def latency_stats(lat_ms: list[float], wall_s: list[float], bs: int) -> dict:
     )
 
 
-def phase_path_bf16(torch, infer, nms, dw, map_metric, frames, gt_boxes, gt_labels):
-    preds = {bs: infer.load_predictor(CONFIG, ARTIFACT, batch_size=bs, device="cuda")
+def phase_path_bf16(torch, infer, nms, dw, map_metric, frames, gt_boxes, gt_labels,
+                    config=CONFIG, artifact=ARTIFACT, phase="path_bf16"):
+    """The serving main path in bf16: SERVE_REQUESTS requests at b1 and at
+    b8 after SERVE_WARMUP, each through `Predictor.__call__` → (launches,
+    latency stats)."""
+    preds = {bs: infer.load_predictor(config, artifact, batch_size=bs, device="cuda")
              for bs in (1, 8)}
     requests = {bs: [np.take(frames, range(bs * r, bs * r + bs), axis=0, mode="wrap")
                      for r in range(SERVE_REQUESTS)]
@@ -894,7 +914,7 @@ def phase_path_bf16(torch, infer, nms, dw, map_metric, frames, gt_boxes, gt_labe
                     depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"])
     n_req = sum(len(v) for v in requests.values())
     if launches != dict(greedy_suppress=n_req, depthwise3x3_s1=9 * n_req):
-        raise AssertionError(f"main path launches {launches} for {n_req} requests")
+        raise AssertionError(f"{phase} launches {launches} for {n_req} requests")
     for bs in (1, 8):
         for det, r in zip(outs[bs], requests[bs]):
             if det.boxes.shape != (len(r), 200, 4) or not np.isfinite(det.boxes).all():
@@ -911,7 +931,8 @@ def phase_path_bf16(torch, infer, nms, dw, map_metric, frames, gt_boxes, gt_labe
     m = ev.compute(iou_threshold=0.5)
     stats = {f"b{bs}": latency_stats(lat[bs], [t / 1e3 for t in lat[bs]], bs)
              for bs in (1, 8)}
-    emit("path_bf16", launches=launches, map50_16_scenes=float(m["mAP"]),
+    emit(phase, config=config, weights=artifact.name, launches=launches,
+         map50_16_scenes=float(m["mAP"]),
          frame="720x1280 uint8 rgb", warmup_requests=SERVE_WARMUP, **stats)
     return launches, stats
 
@@ -1072,27 +1093,47 @@ def phase_decode(nproc: int) -> float:
     return rate
 
 
-def fixture_detections():
-    ref = np.load(EVAL_FIXTURE)
-    return ref, types.SimpleNamespace(boxes=ref["boxes"], scores=ref["scores"],
-                                      classes=ref["classes"], valid=ref["valid"])
+def load_fixture(pair: str | None = None) -> dict:
+    """The SSD300 eval fixture, or one YOLO artifact/priors pair's part of
+    the YOLO-384 fixture, as a dict of arrays."""
+    if pair is None:
+        with np.load(EVAL_FIXTURE) as z:
+            return {k: z[k] for k in z.files}
+    with np.load(YOLO_EVAL_FIXTURE) as z:
+        return {k.split("/", 1)[1]: z[k] for k in z.files if k.startswith(pair + "/")}
 
 
-def phase_eval_f32(torch, nms, dw, nproc: int, decode_rate: float) -> dict:
+def fixture_detections(ref: dict):
+    return types.SimpleNamespace(boxes=ref["boxes"], scores=ref["scores"],
+                                 classes=ref["classes"], valid=ref["valid"])
+
+
+def eval_config(config: str, priors: Path | None):
+    from bdd100k_tpu_torch.configs import apply_yolo_priors, get_config
+
+    cfg = get_config(config)
+    return apply_yolo_priors(cfg, priors) if priors else cfg
+
+
+def phase_eval_f32(torch, nms, dw, nproc: int, decode_rate: float,
+                   config=CONFIG, artifact=ARTIFACT, priors=None, pair=None,
+                   phase="eval_f32") -> dict:
     """`run_eval` on the card in f32 (TF32 off) over the 64 JPEGs at b32,
-    through both kernels, against the JAX f32 fixture: confident
-    detections agree both ways and mAP@0.5 within EVAL_F32_MAP_TOL; the
-    depthwise kernel runs 9 times a batch and NMS once; NMS's keep masks
-    on the path's own candidates equal the plain greedy's."""
+    decoded at the config's image size, through both kernels, against the
+    JAX f32 fixture: confident detections agree both ways and mAP@0.5
+    within EVAL_F32_MAP_TOL; the depthwise kernel runs 9 times a batch and
+    NMS once; NMS's keep masks on the path's own candidates equal the
+    plain greedy's."""
     from bdd100k_tpu_torch import evaluate
-    from bdd100k_tpu_torch.configs import get_config
     from bdd100k_tpu_torch.models.detector import build_detector
     from bdd100k_tpu_torch.utils.weights import restore_eval_weights
 
-    bundle = build_detector(get_config(CONFIG), dtype=torch.float32, device="cuda")
-    restore_eval_weights(bundle.model, ARTIFACT, expect_config=CONFIG)
+    cfg = eval_config(config, priors)
+    bundle = build_detector(cfg, dtype=torch.float32, device="cuda")
+    restore_eval_weights(bundle.model, artifact, expect_config=config)
     dataset = evaluate.load_dataset(types.SimpleNamespace(
-        synthetic=EVAL_SCENES, synthetic_dir=str(SYNTH_DIR), max_boxes=100), 300)
+        synthetic=EVAL_SCENES, synthetic_dir=str(SYNTH_DIR), max_boxes=100),
+        cfg.image_size)
     args = types.SimpleNamespace(batch_size=EVAL_BATCH, num_workers=nproc,
                                  wire="rgb", iou_threshold=0.5, coco_map=True,
                                  dump_detections=None)
@@ -1129,7 +1170,7 @@ def phase_eval_f32(torch, nms, dw, nproc: int, decode_rate: float) -> dict:
                     depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"])
     batches = -(-EVAL_SCENES // EVAL_BATCH)
     if launches != dict(greedy_suppress=batches, depthwise3x3_s1=9 * batches):
-        raise AssertionError(f"eval_f32 launches {launches} for {batches} batches")
+        raise AssertionError(f"{phase} launches {launches} for {batches} batches")
     for cap in captures:
         want = nms.greedy_keep_mask(cap["boxes"].cpu(), cap["valid"].cpu(),
                                     cap["iou_threshold"])
@@ -1138,7 +1179,8 @@ def phase_eval_f32(torch, nms, dw, nproc: int, decode_rate: float) -> dict:
     det = types.SimpleNamespace(**{
         f: torch.cat([getattr(d, f) for d in dets]).cpu().numpy()[:EVAL_SCENES]
         for f in ("boxes", "scores", "classes", "valid")})
-    ref, want = fixture_detections()
+    ref = load_fixture(pair)
+    want = fixture_detections(ref)
     if det.boxes.shape != (EVAL_SCENES, 200, 4) or not np.isfinite(det.boxes).all():
         raise AssertionError("bad eval detections")
     confident_agree(want, det, EVAL_SCENES)
@@ -1152,17 +1194,20 @@ def phase_eval_f32(torch, nms, dw, nproc: int, decode_rate: float) -> dict:
                     kernel_ms=time_ms(torch, lambda: nms.greedy_suppress_cuda(bx, vd, thr)),
                     plain_ms=time_ms(torch, lambda: nms.greedy_keep_mask(bx, vd, thr)),
                     bound_ms=bound, bound_by=by)
-    emit("eval_f32", scenes=EVAL_SCENES, batch=EVAL_BATCH, batches=batches,
-         launches=launches, map50=result["mAP"], fixture_map50=float(ref["map50"]),
+    emit(phase, config=config, weights=artifact.name,
+         priors=priors.name if priors else "config default",
+         decode_size=cfg.image_size, scenes=EVAL_SCENES, batch=EVAL_BATCH,
+         batches=batches, launches=launches, map50=result["mAP"],
+         fixture_map50=float(ref["map50"]),
          map50_diff=map_diff, map50_tol=EVAL_F32_MAP_TOL,
          coco_map=result["coco"]["mAP"], fixture_coco_map=float(ref["coco_map"]),
          confident_detections_agree=True, nms_keep_bits_equal_in_path=True,
          nms_on_eval_candidates=nms_path,
          images_per_sec=result["images_per_sec"], decode_imgs_per_s=decode_rate)
     if not abs(map_diff) <= EVAL_F32_MAP_TOL:
-        raise AssertionError(f"eval_f32 mAP {result['mAP']} is {map_diff} from the "
+        raise AssertionError(f"{phase} mAP {result['mAP']} is {map_diff} from the "
                              f"fixture's {float(ref['map50'])}")
-    return nms_path
+    return dict(nms_path, launches=launches, map50=result["mAP"])
 
 
 def run_quietly(fn, argv, log_path: Path):
@@ -1177,7 +1222,9 @@ def run_quietly(fn, argv, log_path: Path):
     return result, buf.getvalue()
 
 
-def phase_eval_bf16(torch, nms, dw, decode_rate: float) -> dict:
+def phase_eval_bf16(torch, nms, dw, decode_rate: float, config=CONFIG,
+                    artifact=ARTIFACT, priors=None, pair=None,
+                    phase="eval_bf16") -> dict:
     """The eval main path: `python -m bdd100k_tpu_torch.evaluate` as a
     user types it, in bf16 on the card: mAP@0.5 within EVAL_BF16_MAP_TOL
     of the f32 fixture, the dump and --out written."""
@@ -1185,37 +1232,39 @@ def phase_eval_bf16(torch, nms, dw, decode_rate: float) -> dict:
 
     from bdd100k_tpu_torch import evaluate
 
-    out_dir = RUNS / "eval"
+    out_dir = RUNS / phase
     out_dir.mkdir(parents=True, exist_ok=True)
     dump, out = out_dir / "detections.json", out_dir / "result.json"
-    argv = ["--synthetic", str(EVAL_SCENES),
+    argv = ["--config", config, "--synthetic", str(EVAL_SCENES),
             "--synthetic_dir", os.path.relpath(SYNTH_DIR),
-            "--ckpt_dir", os.path.relpath(ARTIFACT),
+            "--ckpt_dir", os.path.relpath(artifact),
             "--batch_size", str(EVAL_BATCH), "--coco_map",
             "--dump_detections", os.path.relpath(dump), "--out", os.path.relpath(out)]
+    if priors:
+        argv += ["--yolo_priors", os.path.relpath(priors)]
     torch.cuda.synchronize()
     # the main path: counts to 0 just before, read just after
     nms.LAUNCHES["greedy_suppress"] = 0
     dw.LAUNCHES["depthwise3x3_s1"] = 0
     t0 = time.perf_counter()
-    result, _ = run_quietly(evaluate.main, argv, RUNS / "eval_bf16_stdout.txt")
+    result, _ = run_quietly(evaluate.main, argv, RUNS / f"{phase}_stdout.txt")
     wall = time.perf_counter() - t0
     launches = dict(greedy_suppress=nms.LAUNCHES["greedy_suppress"],
                     depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"])
     batches = -(-EVAL_SCENES // EVAL_BATCH)
     if launches != dict(greedy_suppress=batches, depthwise3x3_s1=9 * batches):
-        raise AssertionError(f"eval_bf16 launches {launches} for {batches} batches")
-    ref, _ = fixture_detections()
+        raise AssertionError(f"{phase} launches {launches} for {batches} batches")
+    ref = load_fixture(pair)
     entries = json.loads(dump.read_text())
     saved = json.loads(out.read_text())
     map_diff = result["mAP"] - float(ref["map50"])
-    emit("eval_bf16", command="python -m bdd100k_tpu_torch.evaluate " + " ".join(argv),
+    emit(phase, command="python -m bdd100k_tpu_torch.evaluate " + " ".join(argv),
          launches=launches, map50=result["mAP"], map50_diff_vs_f32_fixture=map_diff,
          map50_tol=EVAL_BF16_MAP_TOL, coco_map=result["coco"]["mAP"],
          images_per_sec=result["images_per_sec"], decode_imgs_per_s=decode_rate,
          wall_s=wall, dump_entries=len(entries), out_keys=sorted(saved))
     if not abs(map_diff) <= EVAL_BF16_MAP_TOL:
-        raise AssertionError(f"eval_bf16 mAP {result['mAP']} is {map_diff} from the "
+        raise AssertionError(f"{phase} mAP {result['mAP']} is {map_diff} from the "
                              f"f32 fixture's {float(ref['map50'])}")
     if len(entries) != EVAL_SCENES or not EVAL_OUT_KEYS <= set(saved):
         raise AssertionError(f"dump holds {len(entries)} images; --out keys "
@@ -1342,19 +1391,20 @@ def buffer_diff(a: dict, b: dict) -> dict:
                 worst=max((r, k) for k, r in per.items()))
 
 
-def phase_train_f32(torch, frames, boxes, labels) -> None:
-    """One f32 train step at full width on the artifact's weights, batch 8:
-    on the card with the kernels, on the CPU with their plain versions, and
-    twice more on the CPU with the images perturbed by 1e-6 (the floor)."""
+def phase_train_f32(torch, frames, boxes, labels, config=CONFIG, artifact=ARTIFACT,
+                    batch_size=8, phase="train_f32") -> None:
+    """One f32 train step at full width on the artifact's weights: on the
+    card with the kernels, on the CPU with their plain versions, and twice
+    more on the CPU with the images perturbed by 1e-6 (the floor)."""
     from bdd100k_tpu_torch.configs import TrainConfig, get_config
     from bdd100k_tpu_torch.models.detector import build_detector
     from bdd100k_tpu_torch.parallel import train_step
     from bdd100k_tpu_torch.utils.weights import load_detector_npz
 
-    cfg = get_config(CONFIG)
-    tcfg = TrainConfig(batch_size=8, warmup_steps=0, total_steps=1000)
-    sd, _ = load_detector_npz(ARTIFACT, expect_config=CONFIG)
-    batch = train_batch_f32(torch, frames, boxes, labels, cfg.image_size, 8)
+    cfg = get_config(config)
+    tcfg = TrainConfig(batch_size=batch_size, warmup_steps=0, total_steps=1000)
+    sd, _ = load_detector_npz(artifact, expect_config=config)
+    batch = train_batch_f32(torch, frames, boxes, labels, cfg.image_size, batch_size)
     perturbed = ("cpu_perturbed_0", "cpu_perturbed_1")
     out = {}
     for run, dev in (("card", "cuda"), ("cpu", "cpu")) + tuple((r, "cpu") for r in perturbed):
@@ -1386,7 +1436,7 @@ def phase_train_f32(torch, frames, boxes, labels) -> None:
         F32_GRAD_TENSOR_MIN, *(f[k] for f in floor_per))) for k, d in card_per.items()}
     stats = max((float((card["stats"][k] - v).abs().max() / v.abs().max()), k)
                 for k, v in cpu["stats"].items())
-    emit("train_f32", batch=8, config=CONFIG, weights=ARTIFACT.name,
+    emit(phase, batch=batch_size, config=config, weights=artifact.name,
          cudnn_allow_tf32=torch.backends.cudnn.allow_tf32,
          card=card["metrics"], cpu=cpu["metrics"], rel_diff=rel,
          grad_card_vs_cpu=grad, grad_floor_cpu_perturbed_1e6=floor,
@@ -1408,7 +1458,8 @@ def phase_train_f32(torch, frames, boxes, labels) -> None:
             and grad["median"] <= F32_GRAD_MEDIAN_REL
             and max(tensor_ratio.values()) <= 1.0
             and stats[0] <= F32_STATS_REL):
-        raise AssertionError("the f32 train step on the card differs from the CPU's")
+        raise AssertionError(f"{phase}: the f32 train step on the card differs from "
+                             "the CPU's")
 
 
 def read_log(path: Path) -> dict[int, dict]:
@@ -1512,10 +1563,11 @@ PROFILE_BUCKETS = (
 )
 
 
-def phase_train_profile(torch, frames, boxes, labels) -> None:
+def phase_train_profile(torch, frames, boxes, labels, config=CONFIG,
+                        batch_size=TRAIN_BATCH, phase="train_profile") -> None:
     """Where a bf16 train step's device time goes: torch.profiler over 3
-    steps at B=32 (after 3 warm-up steps), kernel time summed by name and
-    by the layer that launched it, against the window's wall time."""
+    steps (after 3 warm-up steps), kernel time summed by name and by the
+    layer that launched it, against the window's wall time."""
     from torch.profiler import ProfilerActivity, profile
 
     from bdd100k_tpu_torch.configs import TrainConfig, get_config
@@ -1523,12 +1575,12 @@ def phase_train_profile(torch, frames, boxes, labels) -> None:
     from bdd100k_tpu_torch.models.detector import build_detector
     from bdd100k_tpu_torch.parallel import train_step
 
-    cfg = get_config(CONFIG)
+    cfg = get_config(config)
     bundle = build_detector(cfg, device="cuda")
     state = train_step.create_train_state(
         bundle, TrainConfig(warmup_steps=0, total_steps=1000))
     step = train_step.make_train_step(bundle, device="cuda")
-    idx = np.arange(TRAIN_BATCH) % len(frames)
+    idx = np.arange(batch_size) % len(frames)
     gt = [pad_ground_truth(boxes[i], labels[i], 100) for i in idx]
     batch = [torch.from_numpy(frames[idx]).cuda()] + [
         torch.from_numpy(np.stack([g[j] for g in gt])).cuda() for j in range(3)]
@@ -1560,7 +1612,7 @@ def phase_train_profile(torch, frames, boxes, labels) -> None:
                    "other")
         buckets[hit] += ms / steps
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]
-    emit("train_profile", batch=TRAIN_BATCH, steps=steps,
+    emit(phase, config=config, batch=batch_size, steps=steps,
          wall_ms_per_step=wall_ms / steps,
          device_kernel_ms_per_step=busy / steps,
          device_busy_share=busy / wall_ms if wall_ms else None,
@@ -1601,6 +1653,179 @@ def phase_overfit(torch, frames, boxes, labels) -> None:
          mean_first5=first, mean_last5=last, ratio=last / first)
     if not (np.isfinite(losses).all() and last < 0.9 * first):
         raise AssertionError(f"overfit check failed: {losses}")
+
+
+# ------------------------------------------------------------ YOLO-384
+
+YOLO_CONFIG = "yolo_mobilenet_384"
+# each committed YOLO artifact with the priors it was trained with
+YOLO_PAIRS = {
+    "synth9k": (ROOT / "artifacts" / "yolo_mobilenet_384_synth9k.npz", None),
+    "synth4kds": (ROOT / "artifacts" / "yolo_mobilenet_384_synth4kds.npz",
+                  ROOT / "artifacts" / "yolo_priors_synth4k.json"),
+}
+YOLO_EVAL_FIXTURE = ROOT / "tests" / "fixtures" / "torch_ref_eval_yolo384.npz"
+# the nine stride-1 depthwise layers at 384×384, width 1.0: (layers, H = W, C)
+YOLO_DW_SHAPES = (("ds1", 1, 192, 32), ("ds3", 1, 96, 128), ("ds5", 1, 48, 256),
+                  ("ds7-11", 5, 24, 512), ("ds13", 1, 12, 1024))
+YOLO_FWD_BATCHES = (8, EVAL_BATCH)   # serving's b8 and the eval's b32
+YOLO_TRAIN_BATCH = 64                # BASELINE config 3's train step
+YOLO_TRAIN_STEPS = 30
+YOLO_TRAIN_SCENES = 64
+YOLO_F32_BATCH = 4                   # the f32 step the CPU also runs
+
+
+def phase_yolo_depthwise(torch, dw) -> dict:
+    """The depthwise forward at YOLO-384's nine stride-1 layers at B=8 and
+    B=32, then dx and dk at the train step's B=64, each against its plain
+    version and timed beside cuDNN → bf16 totals over the nine layers."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    out = {f"fwd_b{b}": dw_forward_layers(torch, dw, gen, YOLO_DW_SHAPES, b,
+                                          f"yolo_kernel_depthwise_b{b}")
+           for b in YOLO_FWD_BATCHES}
+    bwd = phase_kernel_depthwise_bwd(torch, dw, YOLO_DW_SHAPES, YOLO_TRAIN_BATCH,
+                                     edges=(), phase="yolo_kernel_depthwise_bwd")
+    out.update(dx=bwd["dx"], dk=bwd["dk"], dk_max_abs_err=bwd["max_abs_err"],
+               max_abs_err=max(t["max_abs_err"] for t in out.values()))
+    return out
+
+
+def phase_yolo_matcher(torch, matcher, matching, anchors) -> dict:
+    """The matcher at B=64, M=100 on YOLO-384's 9072 anchors (priors down
+    to 0.02×0.03): chip_smoke's cases and the edge cases (zero-area,
+    whole-image, M = 1 and last-index GTs; also on the fitted priors'
+    anchors), discrete outputs bit-equal to the oracle, one launch a call;
+    timed beside the oracle."""
+    from bdd100k_tpu_torch.ops import anchors as anchor_ops
+    from bdd100k_tpu_torch.ops import boxes as box_ops
+
+    b = YOLO_TRAIN_BATCH
+    rng = np.random.RandomState(3)
+    cases, half_anchor, half_negative, loc_err = hold_matcher_cases(
+        torch, matcher, matching, anchors, rng, b)
+    fitted = eval_config(YOLO_CONFIG, YOLO_PAIRS["synth4kds"][1])
+    sets = {"yolo384": anchors,
+            "yolo384_fitted": anchor_ops.yolo_anchors(
+                fitted.yolo_grids, fitted.yolo_priors).cuda()}
+    names, _, edge_err = hold_matcher_edges(torch, matcher, matching, sets, rng, b)
+    loc_err = max(loc_err, edge_err)
+    name, gtb, gtl, gtm = cases[0]
+    args = [torch.from_numpy(a).cuda() for a in (gtb, gtl, gtm)] + [anchors]
+    first, again = matcher_call(torch, matcher, args), matcher_call(torch, matcher, args)
+    if not all(torch.equal(x, y) for x, y in zip(first, again)):
+        raise AssertionError("two matcher calls differ")
+    # positives that only a forced claim makes (best IoU ≤ the threshold)
+    iou = box_ops.iou_pairwise(args[0], box_ops.center_to_corner(anchors))
+    above = torch.where(args[2][..., None], iou, -1.0).amax(1) > 0.5
+    forced = int((first.positive & ~above).sum())
+    ms = time_ms(torch, lambda: matcher.encode_targets_cuda(*args))
+    plain_ms = time_ms(torch, lambda: matching.encode_targets(*args))
+    bound, by, bytes_ms, ops_ms = matcher_bound_ms(gtm, anchors.shape[0])
+    emit("yolo_kernel_matcher", B=b, M=MATCH_M, A=int(anchors.shape[0]),
+         cases=[c[0] for c in cases], edge_cases=names,
+         iou_half_gts=len(half_anchor), iou_half_left_negative=half_negative,
+         discrete_outputs_bit_equal=True, loc_tolerance="rtol 1e-5, atol 1e-6",
+         loc_max_abs_err=loc_err, real_gt_rows_timed=int(gtm.sum()),
+         positives_timed=int(first.positive.sum()), forced_only_positives=forced,
+         two_calls_bit_equal=True, launches_per_call=1,
+         plan=matcher._plan(int(anchors.shape[0]), MATCH_M)._asdict(),
+         kernel_ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+         bytes_bound_ms=bytes_ms, operations_bound_ms=ops_ms)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+                max_abs_err=loc_err)
+
+
+def phase_yolo_train_bf16(torch, dw, matcher) -> dict:
+    """The YOLO training main path: the trainer at full width and batch 64
+    on 64 rendered seed-0 train scenes (uint8 720p, augment to 384² on the
+    card), YOLO_TRAIN_STEPS steps from the seeded init: finite losses, one
+    matcher launch and 9 + 9 + 9 depthwise forward, dx and dk launches a
+    step, step times and peak device memory."""
+    import shutil
+
+    from bdd100k_tpu_torch import train as train_mod
+
+    run_dir = RUNS / "yolo_train"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["--config", YOLO_CONFIG, "--synthetic", str(YOLO_TRAIN_SCENES),
+            "--batch_size", str(YOLO_TRAIN_BATCH),
+            "--total_steps", str(YOLO_TRAIN_STEPS), "--warmup_steps", "0",
+            "--log_every", "1", "--checkpoint_every", str(YOLO_TRAIN_STEPS),
+            "--seed", "0", "--ckpt_dir", str(run_dir), "--no_resume"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path: counts to 0 just before, read just after
+    dw.LAUNCHES.update(depthwise3x3_s1=0, depthwise3x3_s1_fgrad=0)
+    matcher.LAUNCHES["encode_targets"] = 0
+    t0 = time.perf_counter()
+    out = run_trainer(train_mod, argv, RUNS / "yolo_train_stdout.txt")
+    wall = time.perf_counter() - t0
+    launches = dict(depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"],
+                    depthwise3x3_s1_fgrad=dw.LAUNCHES["depthwise3x3_s1_fgrad"],
+                    encode_targets=matcher.LAUNCHES["encode_targets"])
+    per_step = {k: v / YOLO_TRAIN_STEPS for k, v in launches.items()}
+    if per_step != dict(depthwise3x3_s1=18, depthwise3x3_s1_fgrad=9,
+                        encode_targets=1):
+        raise AssertionError(f"yolo train launches per step {per_step}")
+    if f"done at step {YOLO_TRAIN_STEPS}" not in out:
+        raise AssertionError(f"the YOLO run did not end at step {YOLO_TRAIN_STEPS}")
+    log = read_log(run_dir / "train.jsonl")
+    if not all(np.isfinite(v) for r in log.values() for v in r.values()):
+        raise AssertionError("non-finite YOLO train metrics")
+    t = [log[s]["t"] for s in range(1, YOLO_TRAIN_STEPS + 1)]
+    step_ms = [(b - a) * 1e3 for a, b in zip(t[TRAIN_WARMUP - 1:], t[TRAIN_WARMUP:])]
+    stats = dict(p10_ms=float(np.percentile(step_ms, 10)),
+                 p50_ms=float(np.percentile(step_ms, 50)),
+                 p90_ms=float(np.percentile(step_ms, 90)),
+                 imgs_per_s=YOLO_TRAIN_BATCH * len(step_ms) / (sum(step_ms) / 1e3))
+    emit("yolo_train_bf16", config=YOLO_CONFIG, batch=YOLO_TRAIN_BATCH,
+         scenes=YOLO_TRAIN_SCENES, steps=YOLO_TRAIN_STEPS, timed_steps=len(step_ms),
+         step_time=stats,
+         loss_at={s: log[s]["loss"] for s in (1, 10, 20, YOLO_TRAIN_STEPS) if s in log},
+         launches=launches, launches_per_step=per_step, wall_s=wall,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return dict(launches=launches, step_time=stats)
+
+
+def run_yolo_phases(torch, infer, nms, dw, matcher, matching, map_metric,
+                    nproc: int, decode_rate: float) -> dict:
+    """Every YOLO-MobileNet-384 phase: the kernels at YOLO's shapes, then
+    serving, eval (both artifact/priors pairs), training and a profile of
+    its step → what the kernel table needs."""
+    from bdd100k_tpu_torch.configs import get_config
+    from bdd100k_tpu_torch.data.synthetic import generate_synthetic_scenes
+    from bdd100k_tpu_torch.ops import anchors as anchor_ops
+
+    cfg = get_config(YOLO_CONFIG)
+    anchors = anchor_ops.yolo_anchors(cfg.yolo_grids, cfg.yolo_priors).cuda()
+    out = dict(dw=phase_yolo_depthwise(torch, dw),
+               matcher=phase_yolo_matcher(torch, matcher, matching, anchors))
+    synth9k = YOLO_PAIRS["synth9k"][0]
+    frames, gt_boxes, gt_labels = generate_synthetic_scenes(16, seed=1)
+    captures = phase_path_f32(torch, infer, nms, dw, frames, YOLO_CONFIG, synth9k,
+                              phase="yolo_path_f32")
+    out["nms"] = phase_nms_path_inputs(torch, nms, captures,
+                                       phase="yolo_kernel_nms_path_inputs")
+    out["serve_launches"], _ = phase_path_bf16(
+        torch, infer, nms, dw, map_metric, frames, gt_boxes, gt_labels,
+        YOLO_CONFIG, synth9k, phase="yolo_path_bf16")
+    out["eval_f32"], out["eval_bf16"] = {}, {}
+    for pair, (artifact, priors) in YOLO_PAIRS.items():
+        out["eval_f32"][pair] = phase_eval_f32(
+            torch, nms, dw, nproc, decode_rate, YOLO_CONFIG, artifact, priors,
+            pair, phase=f"yolo_eval_f32_{pair}")
+    for pair, (artifact, priors) in YOLO_PAIRS.items():
+        out["eval_bf16"][pair] = phase_eval_bf16(
+            torch, nms, dw, decode_rate, YOLO_CONFIG, artifact, priors, pair,
+            phase=f"yolo_eval_bf16_{pair}")
+    train_frames, train_boxes, train_labels = generate_synthetic_scenes(
+        YOLO_F32_BATCH, seed=0)
+    phase_train_f32(torch, train_frames, train_boxes, train_labels, YOLO_CONFIG,
+                    synth9k, YOLO_F32_BATCH, phase="yolo_train_f32")
+    out["train"] = phase_yolo_train_bf16(torch, dw, matcher)
+    phase_train_profile(torch, train_frames, train_boxes, train_labels, YOLO_CONFIG,
+                        YOLO_TRAIN_BATCH, phase="yolo_train_profile")
+    return out
 
 
 def main() -> int:
@@ -1674,40 +1899,67 @@ def main() -> int:
     phase_train_profile(torch, train_frames, train_boxes, train_labels)
     phase_overfit(torch, train_frames, train_boxes, train_labels)
 
-    # the kernel table; launches are those of the three main paths
-    # (serving 512 requests, eval 2 batches of 32, 40 train steps)
+    # YOLO-MobileNet-384: the same four kernels at YOLO's shapes, then its
+    # serving, eval (both artifact/priors pairs) and training paths
+    yolo = run_yolo_phases(torch, infer, nms, dw, matcher, matching, map_metric,
+                           nproc, decode_rate)
+
+    # the kernel table; launches are those of the main paths: SSD300
+    # serving 512 requests, eval 2 batches of 32, 40 train steps; YOLO-384
+    # serving 512 requests, eval 2 batches of 32 for each of the two
+    # artifacts, 30 train steps at B=64
     tl, el = train["launches"], ev["launches"]
+    ysl, ytl = yolo["serve_launches"], yolo["train"]["launches"]
+    yel = {k: sum(e["launches"][k] for e in yolo["eval_bf16"].values())
+           for k in ("greedy_suppress", "depthwise3x3_s1")}
+    ydw, ym, yn = yolo["dw"], yolo["matcher"], yolo["nms"]["b8"]
+
+    def yolo_row(t: dict, shape: str) -> dict:
+        return dict(shape=shape, ms=t["ms"], plain_ms=t["plain_ms"],
+                    bound_ms=t["bound_ms"], library_ms=t.get("library_ms"))
+
     kernels = [
         dict(name="greedy_suppress", route="cuda",
              source="bdd100k_tpu_torch/csrc/nms.cu",
              replaces="bdd100k_tpu/ops/pallas_nms.py:124",
-             launches=launches["greedy_suppress"] + el["greedy_suppress"],
+             launches=(launches["greedy_suppress"] + el["greedy_suppress"]
+                       + ysl["greedy_suppress"] + yel["greedy_suppress"]),
              max_abs_err=nms_t["max_abs_err"],
              ms=nms_t[100]["ms"], plain_ms=nms_t[100]["plain_ms"],
              bound_ms=nms_t[100]["bound_ms"], bound_by=nms_t[100]["bound_by"],
-             library_ms=None),
+             library_ms=None,
+             yolo=yolo_row(dict(yn, ms=yn["kernel_ms"]),
+                           "the YOLO b8 serving path's own candidates, C=10 K=100")),
         dict(name="depthwise3x3_s1", route="cuda",
              source="bdd100k_tpu_torch/csrc/depthwise.cu",
              replaces="bdd100k_tpu/ops/pallas_depthwise.py:219",
              launches=(launches["depthwise3x3_s1"] + el["depthwise3x3_s1"]
-                       + tl["depthwise3x3_s1"]),
-             max_abs_err=dw_t["max_abs_err"], ms=dw_t["ms"],
+                       + tl["depthwise3x3_s1"] + ysl["depthwise3x3_s1"]
+                       + yel["depthwise3x3_s1"] + ytl["depthwise3x3_s1"]),
+             max_abs_err=max(dw_t["max_abs_err"], ydw["max_abs_err"]), ms=dw_t["ms"],
              plain_ms=dw_t["plain_ms"], bound_ms=dw_t["bound_ms"],
-             bound_by="bytes", library_ms=dw_t["library_ms"]),
+             bound_by="bytes", library_ms=dw_t["library_ms"],
+             yolo=yolo_row(ydw["fwd_b8"], "forward, 9 layers at 384², B=8 bf16"),
+             yolo_b32=yolo_row(ydw["fwd_b32"], "forward, 9 layers, B=32 bf16"),
+             yolo_dx=yolo_row(ydw["dx"], "dx, 9 layers, B=64 bf16")),
         dict(name="depthwise3x3_s1_fgrad", route="cuda",
              source="bdd100k_tpu_torch/csrc/depthwise.cu",
              replaces="bdd100k_tpu/ops/pallas_depthwise.py:242",
-             launches=tl["depthwise3x3_s1_fgrad"],
-             max_abs_err=bwd_t["max_abs_err"], ms=bwd_t["dk"]["ms"],
+             launches=tl["depthwise3x3_s1_fgrad"] + ytl["depthwise3x3_s1_fgrad"],
+             max_abs_err=max(bwd_t["max_abs_err"], ydw["dk_max_abs_err"]),
+             ms=bwd_t["dk"]["ms"],
              plain_ms=bwd_t["dk"]["plain_ms"], bound_ms=bwd_t["dk"]["bound_ms"],
-             bound_by="bytes", library_ms=bwd_t["dk"]["library_ms"]),
+             bound_by="bytes", library_ms=bwd_t["dk"]["library_ms"],
+             yolo=yolo_row(ydw["dk"], "9 layers at 384², B=64 bf16")),
         dict(name="encode_targets", route="cuda",
              source="bdd100k_tpu_torch/csrc/matcher.cu",
              replaces="bdd100k_tpu/ops/pallas_matcher.py:202",
-             launches=tl["encode_targets"], max_abs_err=match_t["max_abs_err"],
+             launches=tl["encode_targets"] + ytl["encode_targets"],
+             max_abs_err=max(match_t["max_abs_err"], ym["max_abs_err"]),
              ms=match_t["ms"], plain_ms=match_t["plain_ms"],
              bound_ms=match_t["bound_ms"], bound_by=match_t["bound_by"],
-             library_ms=None),
+             library_ms=None,
+             yolo=yolo_row(ym, "B=64 M=100 A=9072 YOLO anchors")),
     ]
     emit("done", seconds=time.perf_counter() - t_start,
          launch_floor_ms=floor_ms,
@@ -1715,12 +1967,19 @@ def main() -> int:
          nms_eval_inputs=eval_nms, depthwise_fwd_b32=dw_t["b32"],
          depthwise_dx_b32_bf16=bwd_t["dx"],
          depthwise_dk_b32_bf16=bwd_t["dk"],
-         note="kernel ms: NMS at B=8 C=10 K=100 (one launch a call); depthwise "
-              "forward summed over the 9 stride-1 layers at B=8 bf16, filter "
-              "gradient at B=32 bf16; matcher at B=32 M=100 A=8732 (one launch a "
-              "call); launches: depthwise3x3_s1 = 4608 serving + 18 eval + 720 "
-              "training (forward and dx), greedy_suppress = 512 serving + 2 "
-              "eval")
+         yolo_depthwise=ydw, yolo_matcher=ym, yolo_nms=yn,
+         yolo_eval={p: dict(f32=yolo["eval_f32"][p]["map50"],
+                            bf16=yolo["eval_bf16"][p]["map50"])
+                    for p in YOLO_PAIRS},
+         yolo_train_step=yolo["train"]["step_time"],
+         note="kernel ms (SSD300 shapes): NMS at B=8 C=10 K=100 (one launch a "
+              "call); depthwise forward summed over the 9 stride-1 layers at B=8 "
+              "bf16, filter gradient at B=32 bf16; matcher at B=32 M=100 A=8732 "
+              "(one launch a call); each row's `yolo` (and the depthwise row's "
+              "`yolo_b32`, `yolo_dx`) gives YOLO-384's shapes as its `shape` "
+              "says; launches: SSD300 serving 512 requests + eval 2 batches + "
+              "40 train steps, YOLO-384 serving 512 requests + eval 2 batches "
+              "for each of 2 artifacts + 30 train steps at B=64")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -190,11 +190,12 @@ def test_label_parser_on_a_directory_of_jsons(tmp_path):
 # ------------------------------------------------------------------ decode
 
 
-@pytest.mark.parametrize("size", [300, 150, 64, 512])
+@pytest.mark.parametrize("size", [300, 150, 64, 512, 384])
 @pytest.mark.parametrize("wire", ["rgb", "yuv420"])
 def test_pool_decode_bit_equal_to_reference(wire, size):
     """All 64 val JPEGs and the train fixtures: 1/2-scale IDCT at 300 and
-    150, 1/8 at 64, full-scale IDCT with fancy upsampling at 512."""
+    150, 1/8 at 64, full-scale IDCT with fancy upsampling at 512 and at
+    384 (YOLO's decode size)."""
     jpegs = [p.read_bytes() for p in _jpeg_files()]
     assert len(jpegs) == N_SCENES + 4
     ref = _ref_decoder()
@@ -732,13 +733,53 @@ def test_evaluate_cli_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
     (["--calib_batches", "4"], "item 10"),
     (["--multihost"], "item 11"),
     (["--mesh_data", "2"], "item 11"),
-    (["--yolo_priors", "p.json"], "item 7"),
-    (["--config", "yolo_mobilenet_384"], "item 7"),
     (["--config", "ssd_vgg16_512"], "item 9"),
 ])
 def test_evaluate_cli_refuses_flags_of_later_slices(argv, item):
     with pytest.raises(SystemExit, match=item):
         port_eval.main(argv + ["--synthetic", "4", "--device", "cpu"])
+
+
+@pytest.fixture(scope="module")
+def yolo_tiny_artifact(tmp_path_factory):
+    """A port-written `yolo_tiny_64` artifact from the seeded init."""
+    bundle = build_detector(tiny_test_config("yolo"), dtype=torch.float32,
+                            device="cpu", seed=1)
+    path = tmp_path_factory.mktemp("yolo") / "yolo_tiny.npz"
+    port_weights.save_detector_npz(path, bundle.model.state_dict(),
+                                   config_name="yolo_tiny_64")
+    return path
+
+
+@pytest.mark.parametrize("extra", [
+    [], ["--yolo_priors", str(ROOT / "artifacts" / "yolo_priors_synth4k.json")],
+], ids=["default_priors", "yolo_priors"])
+def test_evaluate_cli_runs_yolo_on_the_cpu(yolo_tiny_artifact, tmp_path,
+                                           monkeypatch, extra):
+    """The YOLO configs and --yolo_priors run through the CLI (the tiny
+    YOLO config, 5 scenes at batch 4); the dataset decodes at the config's
+    image size, and the priors reach the anchors."""
+    seen = {}
+    real = port_eval.run_eval
+
+    def recording(bundle, dataset, args):
+        seen.update(anchors=bundle.anchors, decode_size=dataset.decode_size)
+        return real(bundle, dataset, args)
+
+    out = tmp_path / "result.json"
+    monkeypatch.setattr(port_eval, "run_eval", recording)
+    result = port_eval.main([
+        "--config", "yolo_tiny_64", "--synthetic", "5",
+        "--synthetic_dir", str(SYNTH), "--ckpt_dir", str(yolo_tiny_artifact),
+        "--batch_size", "4", "--num_workers", "2", "--out", str(out),
+        "--device", "cpu", *extra])
+    assert result["num_images"] == 5 and np.isfinite(result["mAP"])
+    assert seen["decode_size"] == 64
+    priors = tiny_test_config("yolo").yolo_priors
+    if extra:
+        priors = json.loads(Path(extra[1]).read_text())
+    assert float(seen["anchors"][0, 2]) == np.float32(priors[0][0][0])
+    assert set(json.loads(out.read_text())) >= {"mAP", "per_class", "num_images"}
 
 
 # ------------------------------------------------------------------ fixture
