@@ -6,9 +6,12 @@ bdd100k_tpu/data/native_decode.py).
 that releases the GIL: each image through libjpeg's DCT-domain downscale
 (1/2, 1/4 or 1/8, the deepest that still oversamples the target) and the
 pool's own fixed-point bilinear resize to a (size, size) square, as RGB, or
-as planar YUV 4:2:0 (half the bytes on the way to the card). The pool is
-built at first use (`utils/host_build.py`); a JPEG the decoder refuses
-(progressive, arithmetic-coded, CMYK) fails the batch.
+as planar YUV 4:2:0 (half the bytes on the way to the card); a batch of
+decoded RGB frames resizes and converts to those planes in one call too
+(`resize_yuv420_batch`, the serving path's host resize). `decode_full`
+decodes one JPEG at full resolution, with no resize, in the calling thread.
+The library is built at first use (`utils/host_build.py`); a JPEG the
+decoder refuses (progressive, arithmetic-coded, CMYK) fails its call.
 """
 
 from __future__ import annotations
@@ -82,6 +85,28 @@ class NativeDecoder:
         self._check(nfail, n)
         return out_y, out_uv
 
+    def resize_yuv420_batch(
+        self, frames: np.ndarray, size: int
+    ) -> tuple[np.ndarray, np.ndarray]:
+        """Decoded RGB (N, H, W, 3) uint8 → (y (N, S, S), uv (N, S/2, S/2,
+        2)) planes: the pool's bilinear resize and BT.601 conversion, one
+        frame a worker, in one call. `size` must be even."""
+        if self._pool is None:
+            raise RuntimeError("the decoder is closed")
+        if size % 2:
+            raise ValueError(f"yuv420 needs an even size, got {size}")
+        self._check_size(size)
+        frames = np.ascontiguousarray(frames, dtype=np.uint8)
+        if frames.ndim != 4 or frames.shape[-1] != 3 or not len(frames):
+            raise ValueError(f"frames must be (N>0, H, W, 3), got {frames.shape}")
+        n, h, w = frames.shape[:3]
+        out_y = np.empty((n, size, size), np.uint8)
+        out_uv = np.empty((n, size // 2, size // 2, 2), np.uint8)
+        self._lib.dp_resize_yuv420_batch(
+            self._pool, n, frames.ctypes.data, h, w, size,
+            out_y.ctypes.data, out_uv.ctypes.data)
+        return out_y, out_uv
+
     def close(self) -> None:
         """Stop the pool's threads (waits for none: no call is running)."""
         if getattr(self, "_pool", None):
@@ -90,3 +115,20 @@ class NativeDecoder:
 
     def __del__(self):
         self.close()
+
+
+def decode_full(jpeg: bytes) -> np.ndarray:
+    """One JPEG → (H, W, 3) uint8 RGB at full resolution: scale 1/1, fancy
+    upsampling, no resize (`csrc/jpeg/jfull.cc`), the pixels of PIL's
+    `Image.open(path).convert("RGB")`. Releases the GIL while it decodes,
+    so a thread pool of these runs in parallel."""
+    if not isinstance(jpeg, bytes) or not jpeg:
+        raise ValueError("decode_full takes non-empty bytes")
+    lib = decode_pool_library()
+    h, w = ctypes.c_int(), ctypes.c_int()
+    if lib.jd_image_size(jpeg, len(jpeg), ctypes.byref(h), ctypes.byref(w)):
+        raise ValueError("the JPEG's header could not be read")
+    out = np.empty((h.value, w.value, 3), np.uint8)
+    if lib.jd_decode_rgb(jpeg, len(jpeg), h.value, w.value, out.ctypes.data):
+        raise ValueError("the JPEG failed to decode")
+    return out

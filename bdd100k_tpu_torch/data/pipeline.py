@@ -2,10 +2,12 @@
 (counterpart of bdd100k_tpu/data/pipeline.py).
 
 Two datasets:
-* `DetectionDataset`: JPEG files and BDD100K labels. A batch is one call
-  into the decode pool (`data/native_decode.py`, the reference's
-  `native/decode_pool.cc`), which decodes the JPEGs straight to a
-  (decode_size, decode_size) square, RGB or planar YUV 4:2:0;
+* `DetectionDataset`: JPEG files and BDD100K labels. With a `decode_size`,
+  a batch is one call into the decode pool (`data/native_decode.py`, the
+  reference's `native/decode_pool.cc`), which decodes the JPEGs straight
+  to a (decode_size, decode_size) square, RGB or planar YUV 4:2:0; without
+  one, each JPEG decodes at full resolution on a thread pool of single
+  decodes, as the reference's non-native route does;
 * `InMemoryDataset`: frames already in host memory as uint8, the rendered
   scenes of `data/synthetic.py` that the trainer uses.
 
@@ -22,6 +24,7 @@ from __future__ import annotations
 
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Iterator, NamedTuple, Sequence
 
@@ -34,7 +37,8 @@ from bdd100k_tpu_torch.data.bdd100k import (
     load_bdd100k_labels,
     pad_ground_truth,
 )
-from bdd100k_tpu_torch.data.native_decode import NativeDecoder
+from bdd100k_tpu_torch.data.host_resize import resize_linear
+from bdd100k_tpu_torch.data.native_decode import NativeDecoder, decode_full
 
 
 class Batch(NamedTuple):
@@ -97,15 +101,32 @@ class InMemoryDataset:
                      self.mask[idx])
 
 
+class FullResolutionPool:
+    """A thread pool of single full-resolution decodes (`decode_full`
+    releases the GIL), the decoder of a `DetectionDataset` without a
+    decode_size."""
+
+    def __init__(self, num_workers: int = 8):
+        self._pool = ThreadPoolExecutor(max_workers=num_workers)
+
+    def map(self, fn, items) -> list:
+        return list(self._pool.map(fn, items))
+
+    def close(self) -> None:
+        self._pool.shutdown(wait=False, cancel_futures=True)
+
+
 class DetectionDataset:
     """Random-access dataset of (JPEG file, padded GT).
 
     `decode_size` S: each JPEG decodes straight to an (S, S) square on the
     host, through libjpeg's DCT-domain downscale and the pool's bilinear
     resize (boxes are normalized, so the GT is unaffected); the eval path
-    decodes at the model's input size. `decode_size=None`, the reference's
-    full-resolution decode that training from files uses, is not ported
-    yet (ROADMAP Queue 1 item 8)."""
+    decodes at the model's input size. `decode_size=None`: each JPEG
+    decodes at full resolution (`decode_full`, PIL's pixels), and an image
+    that is not image_height × image_width is resized to it — with the
+    bytes of cv2's INTER_LINEAR (`data/host_resize.py`), where the
+    reference's PIL route resizes with PIL's default filter."""
 
     def __init__(
         self,
@@ -116,11 +137,6 @@ class DetectionDataset:
         image_width: int = IMAGE_WIDTH,
         decode_size: int | None = None,
     ):
-        if decode_size is None:
-            raise NotImplementedError(
-                "DetectionDataset(decode_size=None), the full-resolution "
-                "decode for training from files, is not ported yet "
-                "(ROADMAP Queue 1 item 8); pass decode_size")
         self.records = list(records)
         self.image_dir = Path(image_dir)
         self.max_boxes = max_boxes
@@ -142,17 +158,31 @@ class DetectionDataset:
         return [(self.image_dir / self.records[i]["name"]).read_bytes()
                 for i in idx]
 
+    def decode_full(self, jpeg: bytes) -> np.ndarray:
+        """One JPEG at full resolution, resized to image_height ×
+        image_width if it is another size."""
+        image = decode_full(jpeg)
+        if image.shape[:2] != (self.image_height, self.image_width):
+            image = resize_linear(image[None], self.image_height,
+                                  self.image_width)[0]
+        return image
+
     def __getitem__(self, i: int) -> dict:
-        """One image, decoded by a one-thread pool of its own (the loader
-        decodes whole batches through its pool instead)."""
+        """One image, decoded in this thread at full resolution, or by a
+        one-thread pool of its own at `decode_size` (the loader decodes
+        whole batches instead)."""
         rec = self.records[i]
         boxes, labels, mask = pad_ground_truth(
             rec["boxes"], rec["labels"], self.max_boxes)
-        decoder = NativeDecoder(1)
-        try:
-            image = decoder.decode_batch(self.read_jpegs([i]), self.decode_size)[0]
-        finally:
-            decoder.close()
+        if self.decode_size is None:
+            image = self.decode_full(self.read_jpegs([i])[0])
+        else:
+            decoder = NativeDecoder(1)
+            try:
+                image = decoder.decode_batch(self.read_jpegs([i]),
+                                             self.decode_size)[0]
+            finally:
+                decoder.close()
         return {"image": image, "boxes": boxes, "labels": labels,
                 "mask": mask, "name": rec["name"]}
 
@@ -173,12 +203,15 @@ class DetectionDataset:
             self._gt_key = key
         return self._gt_arrays
 
-    def batch(self, idx: np.ndarray, decoder: NativeDecoder,
+    def batch(self, idx: np.ndarray,
+              decoder: NativeDecoder | FullResolutionPool,
               wire_format: str = "rgb") -> Batch:
-        """The images of `idx`, decoded in one call into `decoder`'s pool,
-        and their GT."""
+        """The images of `idx`, decoded in one call into `decoder`'s pool
+        (a `FullResolutionPool` without a decode_size), and their GT."""
         jpegs = self.read_jpegs(idx)
-        if wire_format == "yuv420":
+        if self.decode_size is None:
+            images = np.stack(decoder.map(self.decode_full, jpegs))
+        elif wire_format == "yuv420":
             images = decoder.decode_batch_yuv420(jpegs, self.decode_size)
         else:
             images = decoder.decode_batch(jpegs, self.decode_size)
@@ -220,11 +253,14 @@ def make_loader(
     fast-forwards past the first N batches without building them: whole
     epochs only advance the RNG, the rest moves the cursor inside the
     epoch. A `DetectionDataset` decodes through a pool of `num_workers`
-    threads, on the `wire_format` "rgb" or "yuv420" (even decode_size)."""
+    threads (full-resolution decodes on a `FullResolutionPool` of as many
+    threads without a decode_size), on the `wire_format` "rgb" or "yuv420"
+    (even decode_size)."""
     if wire_format not in ("rgb", "yuv420"):
         raise ValueError(f"unknown wire_format {wire_format!r}")
     files = isinstance(dataset, DetectionDataset)
-    if wire_format == "yuv420" and not (files and dataset.decode_size % 2 == 0):
+    size = dataset.decode_size if files else None
+    if wire_format == "yuv420" and not (size and size % 2 == 0):
         raise ValueError("wire_format='yuv420' needs an even decode_size")
     n = len(dataset)
     per_epoch = n // batch_size if drop_last else -(-n // batch_size)
@@ -236,7 +272,10 @@ def make_loader(
         if shuffle:
             rng.permutation(n)  # advance the RNG identically
     epoch = full_epochs
-    decoder = NativeDecoder(num_workers) if files else None
+    decoder = None
+    if files:
+        decoder = (NativeDecoder(num_workers) if size is not None
+                   else FullResolutionPool(num_workers))
     try:
         while num_epochs is None or epoch < num_epochs:
             order = rng.permutation(n) if shuffle else np.arange(n)

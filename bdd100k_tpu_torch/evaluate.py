@@ -7,6 +7,8 @@ bdd100k_tpu/evaluate.py).
     python -m bdd100k_tpu_torch.evaluate --config yolo_mobilenet_384 \\
         --synthetic 64 --ckpt_dir artifacts/yolo_mobilenet_384_synth4kds.npz \\
         --yolo_priors artifacts/yolo_priors_synth4k.json
+    python -m bdd100k_tpu_torch.evaluate --config ssd_vgg16_512 \\
+        --synthetic 64 --ckpt_dir artifacts/ssd_vgg16_512_synth9k.npz
     python -m bdd100k_tpu_torch.evaluate --labels val.json \\
         --image_dir images/val --ckpt_dir runs/ssd300 --ema
     # on the CPU (the plain versions of the kernels): add --device cpu
@@ -127,8 +129,6 @@ def refuse_unported(args) -> None:
     if args.multihost or args.sync_dir is not None or args.mesh_data is not None:
         later.append(("--multihost/--sync_dir/--mesh_data",
                       "item 11 (multi-GPU and multi-host)"))
-    if args.config == "ssd_vgg16_512":
-        later.append(("--config ssd_vgg16_512", "item 9 (VGG16-SSD512)"))
     if later:
         raise SystemExit("not ported yet: " + "; ".join(
             f"{flag}, ROADMAP Queue 1 {item}" for flag, item in later))
@@ -157,7 +157,7 @@ def _dump_image(dataset, idx: int, det: Detections, row: int) -> dict:
     return {"name": dataset.records[idx]["name"], "labels": labels}
 
 
-def _fetch_async(tensors: list[torch.Tensor]):
+def fetch_async(tensors: list[torch.Tensor]):
     """Start the copies of `tensors` to the host → (host tensors, an event
     that completes with the copies, or None on the CPU). On the card the
     copies are queued on the current stream behind the work that made
@@ -224,7 +224,7 @@ def run_eval(bundle, dataset, args) -> dict:
                 t0 = time.monotonic()
             else:
                 timed += det.boxes.shape[0]
-            fetched = _fetch_async([*det, batch.boxes, batch.labels, batch.mask])
+            fetched = fetch_async([*det, batch.boxes, batch.labels, batch.mask])
             if pending is not None:
                 accumulate(pending)
             pending = fetched

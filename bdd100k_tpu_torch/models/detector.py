@@ -11,6 +11,7 @@ from bdd100k_tpu_torch.configs.detector_configs import DetectorConfig
 from bdd100k_tpu_torch.models.layers import init_params
 from bdd100k_tpu_torch.models.mobilenet import MobileNetBackbone
 from bdd100k_tpu_torch.models.ssd import SSDDetector
+from bdd100k_tpu_torch.models.vgg import VGG16Backbone
 from bdd100k_tpu_torch.models.yolo import YOLODetector
 from bdd100k_tpu_torch.ops import anchors as anchor_ops
 from bdd100k_tpu_torch.ops.nms import Detections
@@ -36,6 +37,14 @@ class DetectorBundle:
         )
 
 
+def _build_backbone(config: DetectorConfig, dtype: torch.dtype):
+    if config.backbone == "mobilenet":
+        return MobileNetBackbone(config.width, dtype)
+    if config.backbone == "vgg16":
+        return VGG16Backbone(dtype)
+    raise ValueError(f"unknown backbone {config.backbone!r}")
+
+
 def build_detector(
     config: DetectorConfig,
     dtype: torch.dtype = torch.bfloat16,
@@ -49,11 +58,11 @@ def build_detector(
     device. `device` defaults to CUDA and raises without it; the CPU runs
     only when asked for."""
     device = resolve_device(device)
-    if config.backbone != "mobilenet":
-        raise NotImplementedError(f"the {config.backbone} backbone is not ported yet")
-    backbone = MobileNetBackbone(config.width, dtype)
+    backbone = _build_backbone(config, dtype)
     cell_sizes = None
     if config.head == "ssd":
+        # MobileNet taps 3 maps (strides 8/16/32), VGG 2 (conv4_3, fc7); the
+        # extra stages make the rest of the pyramid
         model = SSDDetector(backbone, config.feature_maps, config.num_classes,
                             dtype)
         anchors = anchor_ops.ssd_anchors(config.feature_maps)

@@ -23,7 +23,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from bdd100k_tpu_torch.ops.depthwise import conv2d_same, depthwise_conv3x3
+from bdd100k_tpu_torch.ops.depthwise import (
+    conv2d_same,
+    depthwise_conv3x3,
+    same_pads,
+)
 
 BN_EPS = 1e-3
 BN_MOMENTUM = 0.03  # flax momentum 0.97
@@ -77,11 +81,13 @@ class BatchNorm(nn.BatchNorm2d):
 
 
 class Conv(nn.Conv2d):
-    """nn.Conv2d with flax SAME/VALID padding and a per-call working type."""
+    """nn.Conv2d with flax SAME/VALID padding, a kernel dilation and a
+    per-call working type."""
 
     def __init__(self, in_ch, features, kernel, stride=1, padding="SAME",
-                 groups=1, bias=False, dtype=torch.bfloat16):
-        super().__init__(in_ch, features, kernel, stride, 0, 1, groups, bias)
+                 groups=1, bias=False, dtype=torch.bfloat16, dilation=1):
+        super().__init__(in_ch, features, kernel, stride, 0, dilation, groups,
+                         bias)
         if padding not in ("SAME", "VALID"):
             raise ValueError(f"padding {padding!r}")
         self.same = padding == "SAME"
@@ -97,8 +103,9 @@ class Conv(nn.Conv2d):
         w = self.weight.to(self.dtype)
         b = None if self.bias is None else self.bias.to(self.dtype)
         if self.same:
-            return conv2d_same(x, w, b, self.stride[0], self.groups)
-        return F.conv2d(x, w, b, self.stride, 0, 1, self.groups)
+            return conv2d_same(x, w, b, self.stride[0], self.groups,
+                               self.dilation[0])
+        return F.conv2d(x, w, b, self.stride, 0, self.dilation, self.groups)
 
 
 class DepthwiseConv3x3(nn.Module):
@@ -158,13 +165,62 @@ class DepthwiseSeparable(nn.Module):
         return self.pw(self.dw(x))
 
 
+def max_pool_same(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
+    """flax `max_pool(padding="SAME")` on NCHW: −inf pads where flax pads
+    (a 2×2 stride-2 pool on an odd map at the bottom and right only), so a
+    pad never wins the max."""
+    ph = same_pads(x.shape[-2], window, stride)
+    pw = same_pads(x.shape[-1], window, stride)
+    if any(ph + pw):
+        x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(x, window, stride)
+
+
+class L2Norm(nn.Module):
+    """Channel-wise L2 normalisation with a learned per-channel scale
+    (init 20), the SSD conv4_3 normaliser: in f32, x / √(Σc x² + 1e-10) ·
+    scale, cast back to the input's type. The scale is `weight`, which the
+    weight mapping fills from flax's `scale`."""
+
+    def __init__(self, features: int, init_scale: float = 20.0):
+        super().__init__()
+        self.init_scale = init_scale
+        self.weight = nn.Parameter(torch.full((features,), init_scale))
+
+    def reset_parameters(self) -> None:
+        nn.init.constant_(self.weight, self.init_scale)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.to(torch.float32)
+        norm = torch.sqrt((xf * xf).sum(dim=1, keepdim=True) + 1e-10)
+        return (xf / norm * self.weight[:, None, None]).to(x.dtype)
+
+
+class VGGConvBlock(nn.Module):
+    """n × (3×3 SAME conv with bias → ReLU), no BatchNorm, as classic
+    VGG16; the convs are `conv1`..`convN`, the flax names."""
+
+    def __init__(self, in_ch, features, num_convs, dtype=torch.bfloat16):
+        super().__init__()
+        self.num_convs = num_convs
+        for i in range(num_convs):
+            self.add_module(f"conv{i + 1}", Conv(
+                in_ch if i == 0 else features, features, 3, bias=True,
+                dtype=dtype))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for i in range(self.num_convs):
+            x = F.relu(getattr(self, f"conv{i + 1}")(x))
+        return x
+
+
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Redraw every parameter of `model` as flax initialises it, in module
     order, from `generator`; BatchNorm back to scale 1, bias 0, mean 0,
-    var 1."""
+    var 1; an L2Norm scale back to its initial value."""
     for mod in model.modules():
         if isinstance(mod, (Conv, DepthwiseConv3x3)):
             mod.reset_parameters(generator)
-        elif isinstance(mod, BatchNorm):
+        elif isinstance(mod, (BatchNorm, L2Norm)):
             mod.reset_parameters()
     return model

@@ -382,15 +382,18 @@ def conv2d_same(
     bias: torch.Tensor | None = None,
     stride: int = 1,
     groups: int = 1,
+    dilation: int = 1,
 ) -> torch.Tensor:
-    """NCHW conv with flax SAME padding (asymmetric where flax pads so)."""
-    kh, kw = weight.shape[-2:]
+    """NCHW conv with flax SAME padding (asymmetric where flax pads so); a
+    dilated kernel pads as its dilated extent (k − 1)·d + 1 does."""
+    kh, kw = ((k - 1) * dilation + 1 for k in weight.shape[-2:])
     ph = same_pads(x.shape[-2], kh, stride)
     pw = same_pads(x.shape[-1], kw, stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
-        return F.conv2d(x, weight, bias, stride, (ph[0], pw[0]), 1, groups)
+        return F.conv2d(x, weight, bias, stride, (ph[0], pw[0]), dilation,
+                        groups)
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-    return F.conv2d(x, weight, bias, stride, 0, 1, groups)
+    return F.conv2d(x, weight, bias, stride, 0, dilation, groups)
 
 
 def depthwise_conv3x3(

@@ -4,6 +4,8 @@
         --synthetic 64 --total_steps 40 --ckpt_dir runs/ssd300
     python -m bdd100k_tpu_torch.train --config yolo_mobilenet_384 \\
         --batch_size 64 --synthetic 64 --ckpt_dir runs/yolo384
+    python -m bdd100k_tpu_torch.train --config ssd_vgg16_512 \\
+        --batch_size 32 --synthetic 64 --ckpt_dir runs/vgg512
     # on the CPU, at the tiny test config:
     python -m bdd100k_tpu_torch.train --config ssd_tiny_64 --synthetic 8 \\
         --batch_size 4 --total_steps 3 --warmup_steps 0 --device cpu
@@ -49,8 +51,8 @@ from bdd100k_tpu_torch.utils.metrics import MetricsLogger
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="BDD100K detector training (GPU)")
     p.add_argument("--config", default="ssd_mobilenet_300",
-                   help="ssd_mobilenet_300, yolo_mobilenet_384, or a tiny "
-                        "test config (ssd_tiny_64, yolo_tiny_64)")
+                   help="ssd_mobilenet_300, ssd_vgg16_512, yolo_mobilenet_384, "
+                        "or a tiny test config (ssd_tiny_64, yolo_tiny_64)")
     p.add_argument("--yolo_priors", default=None,
                    help="JSON of fitted YOLO priors (python -m "
                         "bdd100k_tpu_torch.data.priors --out) in place of "

@@ -5,9 +5,10 @@ by both packages and compiled here unchanged. It is linked against the
 port's JPEG decoder `csrc/jpeg/jdecode.cc` (libjpeg's API subset, giving
 libjpeg-turbo's pixels bit for bit) rather than a system libjpeg, on every
 machine: the card's machine has no libjpeg, and one decoder everywhere
-keeps the pixels the same wherever the port runs.
+keeps the pixels the same wherever the port runs. The same library holds
+`csrc/jpeg/jfull.cc`, the full-resolution decode of one JPEG.
 
-One g++ call builds both sources into `bdd100k_tpu_torch/_build/`, keyed by
+One g++ call builds the sources into `bdd100k_tpu_torch/_build/`, keyed by
 a hash of the sources, the header and the flags, at first use. A failed
 build raises with the compiler's output; there is no other decoder to
 fall back to. Nothing is compiled when a module is imported.
@@ -26,7 +27,8 @@ from pathlib import Path
 from bdd100k_tpu_torch.utils.cuda_build import BUILD_DIR, CSRC
 
 ROOT = CSRC.parent.parent
-SOURCES = (ROOT / "native" / "decode_pool.cc", CSRC / "jpeg" / "jdecode.cc")
+SOURCES = (ROOT / "native" / "decode_pool.cc", CSRC / "jpeg" / "jdecode.cc",
+           CSRC / "jpeg" / "jfull.cc")
 HEADERS = (CSRC / "jpeg" / "jpeglib.h",)
 FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread",
          "-I", str(CSRC / "jpeg")]
@@ -40,6 +42,12 @@ SIGNATURES = {
     "dp_decode_batch": ([_P, _I, _P, _P, _I, _P], ctypes.c_int),
     # pool, n, jpeg pointers, lengths (long), size, out_y, out_uv
     "dp_decode_batch_yuv420": ([_P, _I, _P, _P, _I, _P, _P], ctypes.c_int),
+    # pool, n, frames, h, w, size, out_y, out_uv
+    "dp_resize_yuv420_batch": ([_P, _I, _P, _I, _I, _I, _P, _P], ctypes.c_int),
+    # jpeg, len (long), &h, &w (jfull.cc)
+    "jd_image_size": ([ctypes.c_char_p, ctypes.c_long, _P, _P], ctypes.c_int),
+    # jpeg, len (long), h, w, out
+    "jd_decode_rgb": ([ctypes.c_char_p, ctypes.c_long, _I, _I, _P], ctypes.c_int),
 }
 
 _lib: ctypes.CDLL | None = None

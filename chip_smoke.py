@@ -17,6 +17,15 @@ forward at B=8 and 32, dx and dk at B=64, the matcher at B=64 on its 9072
 anchors), serving on its trained artifact, eval of both committed YOLO
 artifacts with the priors each was trained with against their JAX
 fixture, an f32 train step against the CPU and the trainer at batch 64.
+VGG16-SSD512 (BASELINE config 2): its f32 serving path against the CPU on
+two JPEGs at 512, serving in bf16 at b1 and b32 on both wires with the
+host resize on and off, NMS at K=200 on its own eval candidates at B=32
+and b1, eval of its committed artifact against its JAX fixture (f32 and
+the bf16 CLI), the matcher at B=32 on its 24564 anchors and the trainer
+at batch 32. Then the serving CLI, `python -m bdd100k_tpu_torch.infer`,
+as subprocesses for all three families, its printed detections held to
+the reference CLI's f32 lines in `tests/fixtures/torch_ref_infer_cli.json`,
+and the full-resolution JPEG decode held to PIL's pixels.
 Each path is checked to have run through its kernels and to give the
 right output. NMS and the matcher are also held bit-equal at the edges of
 what they take (K from 1 to 256, greedy-trap chains; zero-area and
@@ -44,6 +53,8 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 ARTIFACT = ROOT / "artifacts" / "ssd_mobilenet_300_synth9k.npz"
 CONFIG = "ssd_mobilenet_300"
+VGG_CONFIG = "ssd_vgg16_512"
+VGG_ARTIFACT = ROOT / "artifacts" / "ssd_vgg16_512_synth9k.npz"
 
 # H100 SXM peaks (NVIDIA data sheet, at the full 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -245,13 +256,15 @@ def phase_kernel_nms(torch, nms) -> dict:
     return out
 
 
-def phase_nms_path_inputs(torch, nms, captures, phase="kernel_nms_path_inputs") -> dict:
-    """The kernel on the serving path's own candidates, as `phase_path_f32`
-    recorded them (a b8 batch, and its first image as a b1 request would
-    give them), beside the plain greedy's time; keep bits held equal."""
+def phase_nms_path_inputs(torch, nms, captures, phase="kernel_nms_path_inputs",
+                          sizes=(1, 8)) -> dict:
+    """The kernel on a path's own candidates, as `phase_path_f32` (or the
+    eval) recorded them (the batch's first `sizes` images: a b8 batch, and
+    its first image as a b1 request would give them), beside the plain
+    greedy's time; keep bits held equal."""
     cap = captures[0]
     out = {}
-    for bs in (1, 8):
+    for bs in sizes:
         bx = cap["boxes"][:bs].contiguous()
         vd = cap["valid"][:bs].contiguous()
         thr = cap["iou_threshold"]
@@ -794,17 +807,24 @@ def confident_agree(a, b, n: int, thr: float = 0.3, tol: float = 1e-3) -> None:
                                      f"{a.scores[i, j]:.4f}) has no match")
 
 
+def dw_layers(config: str) -> int:
+    """Depthwise kernel launches in one forward: the nine stride-1 layers
+    of MobileNet; VGG16 has none."""
+    return 0 if config == VGG_CONFIG else 9
+
+
 def phase_path_f32(torch, infer, nms, dw, frames, config=CONFIG, artifact=ARTIFACT,
-                   phase="path_f32") -> list:
+                   phase="path_f32", batch=8) -> list:
     """The serving path in f32 on the card against the same port on the
-    CPU: logits within 2e-3, confident detections agreeing both ways, 9
-    depthwise and 1 NMS launch a batch, and NMS's keep masks on the path's
-    own candidates equal to the plain greedy's → those candidates."""
-    pred = infer.load_predictor(config, artifact, batch_size=8, device="cuda",
+    CPU: logits within 2e-3, confident detections agreeing both ways, the
+    config's depthwise launches and 1 NMS launch a batch, and NMS's keep
+    masks on the path's own candidates equal to the plain greedy's → those
+    candidates."""
+    pred = infer.load_predictor(config, artifact, batch_size=batch, device="cuda",
                                 dtype=torch.float32)
-    cpu = infer.load_predictor(config, artifact, batch_size=8, device="cpu",
+    cpu = infer.load_predictor(config, artifact, batch_size=batch, device="cpu",
                                dtype=torch.float32)
-    batches = [frames[i:i + 8] for i in range(0, len(frames), 8)]
+    batches = [frames[i:i + batch] for i in range(0, len(frames), batch)]
     # record what the path hands the suppression: `batched_class_nms` looks
     # `greedy_suppress` up as a module global, so this wrapper sits on the
     # real path and changes nothing in the package
@@ -829,7 +849,7 @@ def phase_path_f32(torch, infer, nms, dw, frames, config=CONFIG, artifact=ARTIFA
     launches = dict(greedy_suppress=nms.LAUNCHES["greedy_suppress"],
                     depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"])
     if launches != dict(greedy_suppress=len(batches),
-                        depthwise3x3_s1=9 * len(batches)):
+                        depthwise3x3_s1=dw_layers(config) * len(batches)):
         raise AssertionError(f"{phase} launches {launches} for {len(batches)} batches")
     # the NMS kernel inside the real path: its keep mask equals the plain
     # greedy on a CPU copy of the inputs the path handed it
@@ -859,7 +879,7 @@ def phase_path_f32(torch, infer, nms, dw, frames, config=CONFIG, artifact=ARTIFA
         confident_agree(det, ref, len(fb))
         confident_agree(ref, det, len(fb), thr=0.31)
     emit(phase, config=config, weights=artifact.name, frames=len(frames),
-         batches=len(batches), launches=launches,
+         frame_shape=list(frames.shape[1:]), batches=len(batches), launches=launches,
          nms_keep_bits_equal_in_path=True, logits_max_abs_err_vs_cpu=max_err,
          logits_atol=2e-3, confident_detections_agree=True)
     return captures
@@ -1093,11 +1113,11 @@ def phase_decode(nproc: int) -> float:
     return rate
 
 
-def load_fixture(pair: str | None = None) -> dict:
-    """The SSD300 eval fixture, or one YOLO artifact/priors pair's part of
-    the YOLO-384 fixture, as a dict of arrays."""
+def load_fixture(pair: str | None = None, path: Path = EVAL_FIXTURE) -> dict:
+    """An eval fixture (SSD300's by default), or one YOLO artifact/priors
+    pair's part of the YOLO-384 fixture, as a dict of arrays."""
     if pair is None:
-        with np.load(EVAL_FIXTURE) as z:
+        with np.load(path) as z:
             return {k: z[k] for k in z.files}
     with np.load(YOLO_EVAL_FIXTURE) as z:
         return {k.split("/", 1)[1]: z[k] for k in z.files if k.startswith(pair + "/")}
@@ -1117,13 +1137,16 @@ def eval_config(config: str, priors: Path | None):
 
 def phase_eval_f32(torch, nms, dw, nproc: int, decode_rate: float,
                    config=CONFIG, artifact=ARTIFACT, priors=None, pair=None,
-                   phase="eval_f32") -> dict:
+                   phase="eval_f32", fixture=EVAL_FIXTURE,
+                   keep_captures=False) -> dict:
     """`run_eval` on the card in f32 (TF32 off) over the 64 JPEGs at b32,
-    decoded at the config's image size, through both kernels, against the
+    decoded at the config's image size, through its kernels, against the
     JAX f32 fixture: confident detections agree both ways and mAP@0.5
-    within EVAL_F32_MAP_TOL; the depthwise kernel runs 9 times a batch and
-    NMS once; NMS's keep masks on the path's own candidates equal the
-    plain greedy's."""
+    within EVAL_F32_MAP_TOL; the depthwise kernel runs the config's layers
+    a batch and NMS once; NMS's keep masks on the path's own candidates
+    equal the plain greedy's → the NMS timing on the first batch's
+    candidates, the launches, the mAP (and, with `keep_captures`, the
+    candidates of every batch)."""
     from bdd100k_tpu_torch import evaluate
     from bdd100k_tpu_torch.models.detector import build_detector
     from bdd100k_tpu_torch.utils.weights import restore_eval_weights
@@ -1169,7 +1192,8 @@ def phase_eval_f32(torch, nms, dw, nproc: int, decode_rate: float,
     launches = dict(greedy_suppress=nms.LAUNCHES["greedy_suppress"],
                     depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"])
     batches = -(-EVAL_SCENES // EVAL_BATCH)
-    if launches != dict(greedy_suppress=batches, depthwise3x3_s1=9 * batches):
+    if launches != dict(greedy_suppress=batches,
+                        depthwise3x3_s1=dw_layers(config) * batches):
         raise AssertionError(f"{phase} launches {launches} for {batches} batches")
     for cap in captures:
         want = nms.greedy_keep_mask(cap["boxes"].cpu(), cap["valid"].cpu(),
@@ -1179,7 +1203,7 @@ def phase_eval_f32(torch, nms, dw, nproc: int, decode_rate: float,
     det = types.SimpleNamespace(**{
         f: torch.cat([getattr(d, f) for d in dets]).cpu().numpy()[:EVAL_SCENES]
         for f in ("boxes", "scores", "classes", "valid")})
-    ref = load_fixture(pair)
+    ref = load_fixture(pair, fixture)
     want = fixture_detections(ref)
     if det.boxes.shape != (EVAL_SCENES, 200, 4) or not np.isfinite(det.boxes).all():
         raise AssertionError("bad eval detections")
@@ -1207,7 +1231,8 @@ def phase_eval_f32(torch, nms, dw, nproc: int, decode_rate: float,
     if not abs(map_diff) <= EVAL_F32_MAP_TOL:
         raise AssertionError(f"{phase} mAP {result['mAP']} is {map_diff} from the "
                              f"fixture's {float(ref['map50'])}")
-    return dict(nms_path, launches=launches, map50=result["mAP"])
+    out = dict(nms_path, launches=launches, map50=result["mAP"])
+    return dict(out, captures=captures) if keep_captures else out
 
 
 def run_quietly(fn, argv, log_path: Path):
@@ -1224,7 +1249,7 @@ def run_quietly(fn, argv, log_path: Path):
 
 def phase_eval_bf16(torch, nms, dw, decode_rate: float, config=CONFIG,
                     artifact=ARTIFACT, priors=None, pair=None,
-                    phase="eval_bf16") -> dict:
+                    phase="eval_bf16", fixture=EVAL_FIXTURE) -> dict:
     """The eval main path: `python -m bdd100k_tpu_torch.evaluate` as a
     user types it, in bf16 on the card: mAP@0.5 within EVAL_BF16_MAP_TOL
     of the f32 fixture, the dump and --out written."""
@@ -1252,9 +1277,10 @@ def phase_eval_bf16(torch, nms, dw, decode_rate: float, config=CONFIG,
     launches = dict(greedy_suppress=nms.LAUNCHES["greedy_suppress"],
                     depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"])
     batches = -(-EVAL_SCENES // EVAL_BATCH)
-    if launches != dict(greedy_suppress=batches, depthwise3x3_s1=9 * batches):
+    if launches != dict(greedy_suppress=batches,
+                        depthwise3x3_s1=dw_layers(config) * batches):
         raise AssertionError(f"{phase} launches {launches} for {batches} batches")
-    ref = load_fixture(pair)
+    ref = load_fixture(pair, fixture)
     entries = json.loads(dump.read_text())
     saved = json.loads(out.read_text())
     map_diff = result["mAP"] - float(ref["map50"])
@@ -1690,23 +1716,18 @@ def phase_yolo_depthwise(torch, dw) -> dict:
     return out
 
 
-def phase_yolo_matcher(torch, matcher, matching, anchors) -> dict:
-    """The matcher at B=64, M=100 on YOLO-384's 9072 anchors (priors down
-    to 0.02×0.03): chip_smoke's cases and the edge cases (zero-area,
-    whole-image, M = 1 and last-index GTs; also on the fitted priors'
-    anchors), discrete outputs bit-equal to the oracle, one launch a call;
-    timed beside the oracle."""
-    from bdd100k_tpu_torch.ops import anchors as anchor_ops
+def phase_matcher_at(torch, matcher, matching, anchors, b: int, sets: dict,
+                     phase: str) -> dict:
+    """The matcher at B=b, M=100 on a family's own anchors (YOLO-384's
+    9072, priors down to 0.02×0.03; VGG16-SSD512's 24564): chip_smoke's
+    cases and the edge cases (zero-area, whole-image, M = 1 and last-index
+    GTs) on each anchor set of `sets`, discrete outputs bit-equal to the
+    oracle, one launch a call; timed beside the oracle, with its plan."""
     from bdd100k_tpu_torch.ops import boxes as box_ops
 
-    b = YOLO_TRAIN_BATCH
     rng = np.random.RandomState(3)
     cases, half_anchor, half_negative, loc_err = hold_matcher_cases(
         torch, matcher, matching, anchors, rng, b)
-    fitted = eval_config(YOLO_CONFIG, YOLO_PAIRS["synth4kds"][1])
-    sets = {"yolo384": anchors,
-            "yolo384_fitted": anchor_ops.yolo_anchors(
-                fitted.yolo_grids, fitted.yolo_priors).cuda()}
     names, _, edge_err = hold_matcher_edges(torch, matcher, matching, sets, rng, b)
     loc_err = max(loc_err, edge_err)
     name, gtb, gtl, gtm = cases[0]
@@ -1721,7 +1742,7 @@ def phase_yolo_matcher(torch, matcher, matching, anchors) -> dict:
     ms = time_ms(torch, lambda: matcher.encode_targets_cuda(*args))
     plain_ms = time_ms(torch, lambda: matching.encode_targets(*args))
     bound, by, bytes_ms, ops_ms = matcher_bound_ms(gtm, anchors.shape[0])
-    emit("yolo_kernel_matcher", B=b, M=MATCH_M, A=int(anchors.shape[0]),
+    emit(phase, B=b, M=MATCH_M, A=int(anchors.shape[0]),
          cases=[c[0] for c in cases], edge_cases=names,
          iou_half_gts=len(half_anchor), iou_half_left_negative=half_negative,
          discrete_outputs_bit_equal=True, loc_tolerance="rtol 1e-5, atol 1e-6",
@@ -1735,22 +1756,24 @@ def phase_yolo_matcher(torch, matcher, matching, anchors) -> dict:
                 max_abs_err=loc_err)
 
 
-def phase_yolo_train_bf16(torch, dw, matcher) -> dict:
-    """The YOLO training main path: the trainer at full width and batch 64
-    on 64 rendered seed-0 train scenes (uint8 720p, augment to 384² on the
-    card), YOLO_TRAIN_STEPS steps from the seeded init: finite losses, one
-    matcher launch and 9 + 9 + 9 depthwise forward, dx and dk launches a
-    step, step times and peak device memory."""
+def phase_trainer_bf16(torch, dw, matcher, config: str, batch: int, steps: int,
+                       scenes: int, phase: str) -> dict:
+    """A training main path: the trainer at full width on `scenes`
+    rendered seed-0 train scenes (uint8 720p, augment to the config's size
+    on the card), `steps` steps from the seeded init: finite losses, one
+    matcher launch and the config's depthwise forward, dx and dk launches
+    a step (9 + 9 + 9 for MobileNet, none for VGG16), step times and peak
+    device memory."""
     import shutil
 
     from bdd100k_tpu_torch import train as train_mod
 
-    run_dir = RUNS / "yolo_train"
+    run_dir = RUNS / phase
     shutil.rmtree(run_dir, ignore_errors=True)
-    argv = ["--config", YOLO_CONFIG, "--synthetic", str(YOLO_TRAIN_SCENES),
-            "--batch_size", str(YOLO_TRAIN_BATCH),
-            "--total_steps", str(YOLO_TRAIN_STEPS), "--warmup_steps", "0",
-            "--log_every", "1", "--checkpoint_every", str(YOLO_TRAIN_STEPS),
+    argv = ["--config", config, "--synthetic", str(scenes),
+            "--batch_size", str(batch),
+            "--total_steps", str(steps), "--warmup_steps", "0",
+            "--log_every", "1", "--checkpoint_every", str(steps),
             "--seed", "0", "--ckpt_dir", str(run_dir), "--no_resume"]
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1758,33 +1781,34 @@ def phase_yolo_train_bf16(torch, dw, matcher) -> dict:
     dw.LAUNCHES.update(depthwise3x3_s1=0, depthwise3x3_s1_fgrad=0)
     matcher.LAUNCHES["encode_targets"] = 0
     t0 = time.perf_counter()
-    out = run_trainer(train_mod, argv, RUNS / "yolo_train_stdout.txt")
+    out = run_trainer(train_mod, argv, RUNS / f"{phase}_stdout.txt")
     wall = time.perf_counter() - t0
     launches = dict(depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"],
                     depthwise3x3_s1_fgrad=dw.LAUNCHES["depthwise3x3_s1_fgrad"],
                     encode_targets=matcher.LAUNCHES["encode_targets"])
-    per_step = {k: v / YOLO_TRAIN_STEPS for k, v in launches.items()}
-    if per_step != dict(depthwise3x3_s1=18, depthwise3x3_s1_fgrad=9,
+    per_step = {k: v / steps for k, v in launches.items()}
+    n = dw_layers(config)
+    if per_step != dict(depthwise3x3_s1=2 * n, depthwise3x3_s1_fgrad=n,
                         encode_targets=1):
-        raise AssertionError(f"yolo train launches per step {per_step}")
-    if f"done at step {YOLO_TRAIN_STEPS}" not in out:
-        raise AssertionError(f"the YOLO run did not end at step {YOLO_TRAIN_STEPS}")
+        raise AssertionError(f"{phase} launches per step {per_step}")
+    if f"done at step {steps}" not in out:
+        raise AssertionError(f"the {phase} run did not end at step {steps}")
     log = read_log(run_dir / "train.jsonl")
     if not all(np.isfinite(v) for r in log.values() for v in r.values()):
-        raise AssertionError("non-finite YOLO train metrics")
-    t = [log[s]["t"] for s in range(1, YOLO_TRAIN_STEPS + 1)]
+        raise AssertionError(f"non-finite {phase} metrics")
+    t = [log[s]["t"] for s in range(1, steps + 1)]
     step_ms = [(b - a) * 1e3 for a, b in zip(t[TRAIN_WARMUP - 1:], t[TRAIN_WARMUP:])]
     stats = dict(p10_ms=float(np.percentile(step_ms, 10)),
                  p50_ms=float(np.percentile(step_ms, 50)),
                  p90_ms=float(np.percentile(step_ms, 90)),
-                 imgs_per_s=YOLO_TRAIN_BATCH * len(step_ms) / (sum(step_ms) / 1e3))
-    emit("yolo_train_bf16", config=YOLO_CONFIG, batch=YOLO_TRAIN_BATCH,
-         scenes=YOLO_TRAIN_SCENES, steps=YOLO_TRAIN_STEPS, timed_steps=len(step_ms),
-         step_time=stats,
-         loss_at={s: log[s]["loss"] for s in (1, 10, 20, YOLO_TRAIN_STEPS) if s in log},
+                 imgs_per_s=batch * len(step_ms) / (sum(step_ms) / 1e3))
+    emit(phase, config=config, batch=batch, scenes=scenes, steps=steps,
+         timed_steps=len(step_ms), step_time=stats,
+         loss_at={s: log[s]["loss"] for s in (1, 5, 10, 20, steps) if s in log},
          launches=launches, launches_per_step=per_step, wall_s=wall,
          peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
-    return dict(launches=launches, step_time=stats)
+    return dict(launches=launches, step_time=stats,
+                peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
 def run_yolo_phases(torch, infer, nms, dw, matcher, matching, map_metric,
@@ -1798,8 +1822,13 @@ def run_yolo_phases(torch, infer, nms, dw, matcher, matching, map_metric,
 
     cfg = get_config(YOLO_CONFIG)
     anchors = anchor_ops.yolo_anchors(cfg.yolo_grids, cfg.yolo_priors).cuda()
+    fitted = eval_config(YOLO_CONFIG, YOLO_PAIRS["synth4kds"][1])
+    sets = {"yolo384": anchors,
+            "yolo384_fitted": anchor_ops.yolo_anchors(
+                fitted.yolo_grids, fitted.yolo_priors).cuda()}
     out = dict(dw=phase_yolo_depthwise(torch, dw),
-               matcher=phase_yolo_matcher(torch, matcher, matching, anchors))
+               matcher=phase_matcher_at(torch, matcher, matching, anchors,
+                                        YOLO_TRAIN_BATCH, sets, "yolo_kernel_matcher"))
     synth9k = YOLO_PAIRS["synth9k"][0]
     frames, gt_boxes, gt_labels = generate_synthetic_scenes(16, seed=1)
     captures = phase_path_f32(torch, infer, nms, dw, frames, YOLO_CONFIG, synth9k,
@@ -1822,10 +1851,348 @@ def run_yolo_phases(torch, infer, nms, dw, matcher, matching, map_metric,
         YOLO_F32_BATCH, seed=0)
     phase_train_f32(torch, train_frames, train_boxes, train_labels, YOLO_CONFIG,
                     synth9k, YOLO_F32_BATCH, phase="yolo_train_f32")
-    out["train"] = phase_yolo_train_bf16(torch, dw, matcher)
+    out["train"] = phase_trainer_bf16(torch, dw, matcher, YOLO_CONFIG,
+                                      YOLO_TRAIN_BATCH, YOLO_TRAIN_STEPS,
+                                      YOLO_TRAIN_SCENES, "yolo_train_bf16")
     phase_train_profile(torch, train_frames, train_boxes, train_labels, YOLO_CONFIG,
                         YOLO_TRAIN_BATCH, phase="yolo_train_profile")
     return out
+
+
+# ------------------------------------------------------------ VGG16-SSD512
+
+VGG_EVAL_FIXTURE = ROOT / "tests" / "fixtures" / "torch_ref_eval_vgg512.npz"
+VGG_SIZE = 512
+VGG_TRAIN_BATCH = 32   # BASELINE config 2's batch
+VGG_TRAIN_STEPS = 10
+VGG_TRAIN_SCENES = 64
+VGG_B32_REQUESTS = 8   # b32 requests a serving mode, after warm-up
+# (wire, host resize) of the serving modes
+VGG_SERVE_MODES = (("rgb", False), ("yuv420", False), ("rgb", True), ("yuv420", True))
+BF16_AGREE_TOL = 0.05  # bf16 against f32: scores and box corners
+BF16_AGREE_THR = 0.5   # the detections held: score above this
+
+
+def decode_jpegs(names: list[str], size: int | None, nproc: int) -> np.ndarray:
+    """The named seed-1 JPEGs decoded by the pool at `size` (or at full
+    resolution when None) → (N, H, W, 3) uint8."""
+    from bdd100k_tpu_torch.data.native_decode import NativeDecoder, decode_full
+    from bdd100k_tpu_torch.data.pipeline import FullResolutionPool
+
+    jpegs = [(SYNTH_DIR / "images" / "val" / n).read_bytes() for n in names]
+    if size is None:
+        pool = FullResolutionPool(nproc)
+        try:
+            return np.stack(pool.map(decode_full, jpegs))
+        finally:
+            pool.close()
+    dec = NativeDecoder(nproc)
+    try:
+        return dec.decode_batch(jpegs, size)
+    finally:
+        dec.close()
+
+
+def jpeg_names() -> list[str]:
+    return sorted(p.name for p in (SYNTH_DIR / "images" / "val").glob("*.jpg"))
+
+
+def phase_vgg_decode512(nproc: int) -> None:
+    """The pool's decode of the 64 JPEGs at 512², held to the sha256 of the
+    reference's decode in the VGG fixture."""
+    import hashlib
+
+    ref = np.load(VGG_EVAL_FIXTURE)
+    images = decode_jpegs(jpeg_names(), VGG_SIZE, nproc)
+    digests = [hashlib.sha256(im.tobytes()).hexdigest() for im in images]
+    match = sum(d == w.decode() for d, w in zip(digests, ref["image_sha256"]))
+    emit("vgg_decode512", jpegs=len(digests), size=VGG_SIZE,
+         sha256_match_reference=f"{match}/{len(digests)}")
+    if match != len(digests):
+        raise AssertionError(f"512² decode differs from the reference's: "
+                             f"{match}/{len(digests)} equal")
+
+
+def phase_vgg_path_bf16(torch, infer, nms, dw, frames, phase="vgg_path_bf16") -> dict:
+    """The VGG16-SSD512 serving main path in bf16 through `Predictor`, in
+    each of VGG_SERVE_MODES on the rendered 720p scenes: SERVE_REQUESTS
+    requests at b1 (latency percentiles) and VGG_B32_REQUESTS at b32
+    (BASELINE config 2's batch: imgs/s), after a warm-up; one NMS launch a
+    request and no depthwise one. The confident detections of the first
+    b32 request agree with the f32 path's on the same frames and mode
+    (scores and corners within BF16_AGREE_TOL) → launches and stats."""
+    n = len(frames)
+    out, total = {}, dict(greedy_suppress=0, depthwise3x3_s1=0)
+    for wire, host_resize in VGG_SERVE_MODES:
+        mode = f"{wire}_host_resize_{'on' if host_resize else 'off'}"
+        preds = {bs: infer.load_predictor(VGG_CONFIG, VGG_ARTIFACT, batch_size=bs,
+                                          device="cuda", host_resize=host_resize,
+                                          wire=wire)
+                 for bs in (1, EVAL_BATCH)}
+        if any(p.wire != wire for p in preds.values()):
+            raise AssertionError(f"{mode}: the predictor took another wire")
+        requests = {
+            1: [frames[r % n][None] for r in range(SERVE_REQUESTS)],
+            EVAL_BATCH: [np.take(frames, range(EVAL_BATCH * r, EVAL_BATCH * (r + 1)),
+                                 axis=0, mode="wrap") for r in range(VGG_B32_REQUESTS)]}
+        for bs, p in preds.items():  # warm-up, outside the counted run
+            for r in requests[bs][:SERVE_WARMUP if bs == 1 else 2]:
+                p(r)
+        torch.cuda.synchronize()
+        # the main path: counts to 0 just before, read just after
+        nms.LAUNCHES["greedy_suppress"] = 0
+        dw.LAUNCHES["depthwise3x3_s1"] = 0
+        lat, outs = {1: [], EVAL_BATCH: []}, {1: [], EVAL_BATCH: []}
+        for bs, p in preds.items():
+            for r in requests[bs]:
+                t0 = time.perf_counter()
+                outs[bs].append(p(r))  # ends in the copy back: a sync
+                lat[bs].append((time.perf_counter() - t0) * 1e3)
+        launches = dict(greedy_suppress=nms.LAUNCHES["greedy_suppress"],
+                        depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"])
+        n_req = sum(len(v) for v in requests.values())
+        if launches != dict(greedy_suppress=n_req, depthwise3x3_s1=0):
+            raise AssertionError(f"{phase} {mode} launches {launches} for {n_req} "
+                                 "requests")
+        for k in total:
+            total[k] += launches[k]
+        for bs in preds:
+            for det, r in zip(outs[bs], requests[bs]):
+                if det.boxes.shape != (len(r), 200, 4) or \
+                        not np.isfinite(det.boxes).all() or not det.valid.any():
+                    raise AssertionError(f"{phase} {mode}: bad detections")
+        f32 = infer.load_predictor(VGG_CONFIG, VGG_ARTIFACT, batch_size=n, device="cuda",
+                                   dtype=torch.float32, host_resize=host_resize,
+                                   wire=wire)
+        want = f32(frames)
+        got = outs[EVAL_BATCH][0]
+        confident_agree(want, got, n, thr=BF16_AGREE_THR, tol=BF16_AGREE_TOL)
+        confident_agree(got, want, n, thr=BF16_AGREE_THR + BF16_AGREE_TOL,
+                        tol=BF16_AGREE_TOL)
+        out[mode] = dict(
+            b1=latency_stats(lat[1], [t / 1e3 for t in lat[1]], 1),
+            b32=latency_stats(lat[EVAL_BATCH], [t / 1e3 for t in lat[EVAL_BATCH]],
+                              EVAL_BATCH),
+            launches=launches)
+        del preds, f32
+        torch.cuda.empty_cache()
+    emit(phase, config=VGG_CONFIG, weights=VGG_ARTIFACT.name,
+         frame="720x1280 uint8 rgb", warmup_requests=SERVE_WARMUP,
+         confident_vs_f32=dict(thr=BF16_AGREE_THR, tol=BF16_AGREE_TOL, agree=True),
+         **out)
+    return dict(launches=total, modes=out)
+
+
+def run_vgg_phases(torch, infer, nms, dw, matcher, matching, nproc: int,
+                   decode_rate: float) -> dict:
+    """Every VGG16-SSD512 phase: the f32 serving path against the CPU on
+    two JPEGs at 512, the bf16 serving main path, eval in f32 against the
+    fixture and in bf16 through the CLI, NMS on the eval's own b32
+    candidates, the matcher at B=32 on its 24564 anchors and the trainer
+    at B=32 → what the kernel table needs."""
+    from bdd100k_tpu_torch.configs import get_config
+    from bdd100k_tpu_torch.data.synthetic import generate_synthetic_scenes
+    from bdd100k_tpu_torch.ops import anchors as anchor_ops
+
+    phase_vgg_decode512(nproc)
+    two = decode_jpegs(jpeg_names()[:2], VGG_SIZE, nproc)
+    captures = phase_path_f32(torch, infer, nms, dw, two, VGG_CONFIG, VGG_ARTIFACT,
+                              phase="vgg_path_f32", batch=2)
+    out = {"nms_b2": phase_nms_path_inputs(torch, nms, captures,
+                                           phase="vgg_kernel_nms_path_b2",
+                                           sizes=(1, 2))}
+    frames, _, _ = generate_synthetic_scenes(16, seed=1)
+    out["serve"] = phase_vgg_path_bf16(torch, infer, nms, dw, frames)
+    ev = phase_eval_f32(torch, nms, dw, nproc, decode_rate, VGG_CONFIG, VGG_ARTIFACT,
+                        phase="vgg_eval_f32", fixture=VGG_EVAL_FIXTURE,
+                        keep_captures=True)
+    out["nms"] = phase_nms_path_inputs(torch, nms, ev.pop("captures"),
+                                       phase="vgg_kernel_nms_path_inputs",
+                                       sizes=(1, EVAL_BATCH))
+    out["eval_f32"] = ev
+    out["eval_bf16"] = phase_eval_bf16(torch, nms, dw, decode_rate, VGG_CONFIG,
+                                       VGG_ARTIFACT, phase="vgg_eval_bf16",
+                                       fixture=VGG_EVAL_FIXTURE)
+    anchors = anchor_ops.ssd_anchors(get_config(VGG_CONFIG).feature_maps).cuda()
+    out["matcher"] = phase_matcher_at(torch, matcher, matching, anchors,
+                                      VGG_TRAIN_BATCH, {"ssd512": anchors},
+                                      "vgg_kernel_matcher")
+    out["train"] = phase_trainer_bf16(torch, dw, matcher, VGG_CONFIG, VGG_TRAIN_BATCH,
+                                      VGG_TRAIN_STEPS, VGG_TRAIN_SCENES,
+                                      "vgg_train_bf16")
+    return out
+
+
+# ------------------------------------------------------------ serving CLI
+
+CLI_FIXTURE = ROOT / "tests" / "fixtures" / "torch_ref_infer_cli.json"
+CLI_CONFIGS = {CONFIG: ARTIFACT, YOLO_CONFIG: YOLO_PAIRS["synth9k"][0],
+               VGG_CONFIG: VGG_ARTIFACT}
+# the directory sweep's modes: name → extra CLI flags
+CLI_MODES = {"yuv420": [], "rgb": ["--wire", "rgb"],
+             "host_resize_off": ["--host_resize", "off"]}
+CLI_REPEAT = 8            # the bf16 sweeps: the 64 JPEGs 8 times over
+CLI_LINE_TOL = 1e-3 + 1e-6  # one step of the printed third decimal
+CLI_THRESHOLD = 0.4       # the CLI's --score_threshold default
+CLI_TIE = 2e-3            # a score this close to the threshold may cross it
+FULL_RES_PASSES = 5
+
+
+def cli_lines_agree(got: dict, want: dict, names: list[str]) -> list[str]:
+    """Per image, each line of one side has a line of the other of its
+    class with score and corners within CLI_LINE_TOL; a line left over
+    must sit within CLI_TIE of the threshold (a near-tie there, named in
+    the result) → the near-ties."""
+    ties = []
+    for name in names:
+        left = list(want.get(name, []))
+        extra = []
+        for cls, score, box in got.get(name, []):
+            hit = [j for j, (c, s, b) in enumerate(left) if c == cls
+                   and abs(s - score) <= CLI_LINE_TOL
+                   and max(abs(p - q) for p, q in zip(b, box)) <= CLI_LINE_TOL]
+            if hit:
+                left.pop(hit[0])
+            else:
+                extra.append(("port", cls, score))
+        extra += [("reference", c, s) for c, s, _ in left]
+        for side, cls, score in extra:
+            if abs(score - CLI_THRESHOLD) > CLI_TIE:
+                raise AssertionError(f"{name}: {side} line {cls} {score} has no "
+                                     "counterpart")
+            ties.append(f"{name}: {side} {cls} {score}")
+    return ties
+
+
+def run_cli(argv: list[str], log_path: Path) -> tuple[str, float]:
+    """`python -m bdd100k_tpu_torch.infer argv` as a subprocess → (its
+    stdout, wall seconds); its output also goes to `log_path`."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "bdd100k_tpu_torch.infer", *argv],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    log_path.write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0:
+        raise AssertionError(f"infer {' '.join(argv)} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    return proc.stdout, wall
+
+
+def cli_rate(stdout: str, n: int) -> tuple[float, float | None]:
+    """The imgs/sec of the CLI's last line, which must count `n` images:
+    over the whole sweep, and after its first batch (None for one
+    batch)."""
+    last = stdout.strip().splitlines()[-1]
+    if not last.startswith(f"{n} images in"):
+        raise AssertionError(f"the sweep's last line is {last!r}, not {n} images")
+    whole = float(last.split(" = ")[1].split()[0])
+    steady = (float(last.split("; ")[1].split()[0]) if "; " in last else None)
+    return whole, steady
+
+
+def phase_infer_cli() -> dict:
+    """`python -m bdd100k_tpu_torch.infer` as users run it, one subprocess
+    each: for SSD300, YOLO-384 and VGG16-SSD512 on their synth9k
+    artifacts, the 64 JPEGs at --batch_size 32 in f32 on the default
+    (yuv420) wire, --wire rgb and --host_resize off, and --image on one
+    JPEG at full resolution, their lines held to the reference CLI's f32
+    lines in the fixture; then the bf16 main path (the CLI's default) over
+    the 64 JPEGs CLI_REPEAT times over on each wire, for imgs/s; and
+    --out_dir on 8 images."""
+    import os
+
+    from bdd100k_tpu_torch import infer
+
+    ref = json.loads(CLI_FIXTURE.read_text())
+    names = jpeg_names()
+    images = os.path.relpath(SYNTH_DIR / "images" / "val")
+    logs = RUNS / "infer_cli"
+    logs.mkdir(parents=True, exist_ok=True)
+    big = logs / "dir512"
+    big.mkdir(exist_ok=True)
+    for r in range(CLI_REPEAT):
+        for n in names:
+            link = big / f"r{r}_{n}"
+            if not link.exists():
+                link.symlink_to(SYNTH_DIR / "images" / "val" / n)
+    out = {}
+    for config, artifact in CLI_CONFIGS.items():
+        base = ["--config", config, "--ckpt_dir", os.path.relpath(artifact)]
+        row = {}
+        for mode, extra in CLI_MODES.items():
+            stdout, wall = run_cli(base + ["--image_dir", images, "--batch_size",
+                                           str(EVAL_BATCH), "--dtype", "float32",
+                                           *extra], logs / f"{config}_{mode}_f32.txt")
+            cli_rate(stdout, len(names))  # the sweep counted every image
+            got = infer.parse_detection_lines(stdout)
+            want = ref["dir"][config][mode]
+            ties = cli_lines_agree(got, infer.parse_detection_lines("\n".join(want)),
+                                   names)
+            row[mode] = dict(lines=sum(map(len, got.values())),
+                             fixture_lines=len(want),
+                             near_ties=ties, wall_s=wall)
+        stdout, wall = run_cli(base + ["--image", os.path.join(images, names[0]),
+                                       "--dtype", "float32"],
+                               logs / f"{config}_single_f32.txt")
+        ties = cli_lines_agree(infer.parse_detection_lines(stdout),
+                               infer.parse_detection_lines(
+                                   "\n".join(ref["single"][config])), names[:1])
+        if "warm latency" not in stdout:
+            raise AssertionError(f"{config} --image printed no warm latency")
+        row["single_image"] = dict(near_ties=ties, wall_s=wall, latency_lines=[
+            x for x in stdout.splitlines() if "latency" in x])
+        for wire in ("yuv420", "rgb"):
+            stdout, wall = run_cli(base + ["--image_dir", os.path.relpath(big),
+                                           "--batch_size", str(EVAL_BATCH),
+                                           "--wire", wire],
+                                   logs / f"{config}_{wire}_bf16.txt")
+            whole, steady = cli_rate(stdout, len(names) * CLI_REPEAT)
+            row[f"bf16_{wire}"] = dict(images=len(names) * CLI_REPEAT, wall_s=wall,
+                                       imgs_per_s=whole,
+                                       imgs_per_s_after_first_batch=steady)
+        out[config] = row
+    eight = logs / "dir8"
+    eight.mkdir(exist_ok=True)
+    for n in names[:8]:
+        if not (eight / n).exists():
+            (eight / n).symlink_to(SYNTH_DIR / "images" / "val" / n)
+    drawn = logs / "drawn"
+    stdout, _ = run_cli(["--config", VGG_CONFIG, "--ckpt_dir",
+                         os.path.relpath(VGG_ARTIFACT), "--image_dir",
+                         os.path.relpath(eight), "--batch_size", "8",
+                         "--out_dir", os.path.relpath(drawn)], logs / "out_dir.txt")
+    pngs = sorted(drawn.glob("det_*.png"))
+    if [p.name for p in pngs] != [f"det_{Path(n).stem}.png" for n in names[:8]] or \
+            not all(p.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n" for p in pngs):
+        raise AssertionError(f"--out_dir wrote {[p.name for p in pngs]}")
+    emit("infer_cli", command="python -m bdd100k_tpu_torch.infer",
+         scenes=len(names), batch=EVAL_BATCH, line_tol=CLI_LINE_TOL,
+         threshold=CLI_THRESHOLD, near_tie_band=CLI_TIE, lines_agree=True,
+         out_dir_pngs=len(pngs), **out)
+    return out
+
+
+def phase_full_res_decode(nproc: int) -> float:
+    """`decode_full` on the 64 JPEGs at 1/1 through a `FullResolutionPool`
+    of `nproc` threads: each sha256 equal to PIL's in the fixture → imgs/s
+    over FULL_RES_PASSES passes."""
+    import hashlib
+
+    want = json.loads(CLI_FIXTURE.read_text())["full_res_sha256"]
+    names = jpeg_names()
+    images = decode_jpegs(names, None, nproc)
+    match = sum(hashlib.sha256(im.tobytes()).hexdigest() == want[n]
+                for im, n in zip(images, names))
+    t0 = time.perf_counter()
+    for _ in range(FULL_RES_PASSES):
+        decode_jpegs(names, None, nproc)
+    rate = FULL_RES_PASSES * len(names) / (time.perf_counter() - t0)
+    emit("full_res_decode", jpegs=len(names), shape=list(images.shape[1:]),
+         sha256_match_pil=f"{match}/{len(names)}", workers=nproc,
+         passes=FULL_RES_PASSES, imgs_per_s=rate)
+    if match != len(names):
+        raise AssertionError(f"full-resolution decode: {match}/{len(names)} equal PIL")
+    return rate
 
 
 def main() -> int:
@@ -1904,11 +2271,23 @@ def main() -> int:
     yolo = run_yolo_phases(torch, infer, nms, dw, matcher, matching, map_metric,
                            nproc, decode_rate)
 
+    # VGG16-SSD512 (BASELINE config 2): serving, eval and training, NMS at
+    # K=200 on its own candidates and the matcher on its 24564 anchors;
+    # then the serving CLI of all three families, and the full-resolution
+    # decode it uses for one image
+    vgg = run_vgg_phases(torch, infer, nms, dw, matcher, matching, nproc,
+                         decode_rate)
+    cli = phase_infer_cli()
+    full_res_rate = phase_full_res_decode(nproc)
+
     # the kernel table; launches are those of the main paths: SSD300
     # serving 512 requests, eval 2 batches of 32, 40 train steps; YOLO-384
     # serving 512 requests, eval 2 batches of 32 for each of the two
-    # artifacts, 30 train steps at B=64
+    # artifacts, 30 train steps at B=64; VGG16-SSD512 serving 4 modes ×
+    # (256 b1 + 16 b32 requests), eval 2 batches of 32, 10 train steps
     tl, el = train["launches"], ev["launches"]
+    vsl, vel = vgg["serve"]["launches"], vgg["eval_bf16"]["launches"]
+    vtl = vgg["train"]["launches"]
     ysl, ytl = yolo["serve_launches"], yolo["train"]["launches"]
     yel = {k: sum(e["launches"][k] for e in yolo["eval_bf16"].values())
            for k in ("greedy_suppress", "depthwise3x3_s1")}
@@ -1923,13 +2302,19 @@ def main() -> int:
              source="bdd100k_tpu_torch/csrc/nms.cu",
              replaces="bdd100k_tpu/ops/pallas_nms.py:124",
              launches=(launches["greedy_suppress"] + el["greedy_suppress"]
-                       + ysl["greedy_suppress"] + yel["greedy_suppress"]),
+                       + ysl["greedy_suppress"] + yel["greedy_suppress"]
+                       + vsl["greedy_suppress"] + vel["greedy_suppress"]),
              max_abs_err=nms_t["max_abs_err"],
              ms=nms_t[100]["ms"], plain_ms=nms_t[100]["plain_ms"],
              bound_ms=nms_t[100]["bound_ms"], bound_by=nms_t[100]["bound_by"],
              library_ms=None,
              yolo=yolo_row(dict(yn, ms=yn["kernel_ms"]),
-                           "the YOLO b8 serving path's own candidates, C=10 K=100")),
+                           "the YOLO b8 serving path's own candidates, C=10 K=100"),
+             vgg=yolo_row(dict(vgg["nms"][f"b{EVAL_BATCH}"],
+                               ms=vgg["nms"][f"b{EVAL_BATCH}"]["kernel_ms"]),
+                          "VGG16-SSD512's own eval candidates, B=32 C=10 K=200"),
+             vgg_b1=yolo_row(dict(vgg["nms"]["b1"], ms=vgg["nms"]["b1"]["kernel_ms"]),
+                             "VGG16-SSD512's own candidates, B=1 C=10 K=200")),
         dict(name="depthwise3x3_s1", route="cuda",
              source="bdd100k_tpu_torch/csrc/depthwise.cu",
              replaces="bdd100k_tpu/ops/pallas_depthwise.py:219",
@@ -1954,12 +2339,15 @@ def main() -> int:
         dict(name="encode_targets", route="cuda",
              source="bdd100k_tpu_torch/csrc/matcher.cu",
              replaces="bdd100k_tpu/ops/pallas_matcher.py:202",
-             launches=tl["encode_targets"] + ytl["encode_targets"],
-             max_abs_err=max(match_t["max_abs_err"], ym["max_abs_err"]),
+             launches=(tl["encode_targets"] + ytl["encode_targets"]
+                       + vtl["encode_targets"]),
+             max_abs_err=max(match_t["max_abs_err"], ym["max_abs_err"],
+                             vgg["matcher"]["max_abs_err"]),
              ms=match_t["ms"], plain_ms=match_t["plain_ms"],
              bound_ms=match_t["bound_ms"], bound_by=match_t["bound_by"],
              library_ms=None,
-             yolo=yolo_row(ym, "B=64 M=100 A=9072 YOLO anchors")),
+             yolo=yolo_row(ym, "B=64 M=100 A=9072 YOLO anchors"),
+             vgg=yolo_row(vgg["matcher"], "B=32 M=100 A=24564 SSD512 anchors")),
     ]
     emit("done", seconds=time.perf_counter() - t_start,
          launch_floor_ms=floor_ms,
@@ -1972,14 +2360,24 @@ def main() -> int:
                             bf16=yolo["eval_bf16"][p]["map50"])
                     for p in YOLO_PAIRS},
          yolo_train_step=yolo["train"]["step_time"],
+         vgg_nms=vgg["nms"], vgg_matcher=vgg["matcher"],
+         vgg_eval=dict(f32=vgg["eval_f32"]["map50"], bf16=vgg["eval_bf16"]["map50"]),
+         vgg_train_step=vgg["train"]["step_time"],
+         vgg_train_peak_mem_gb=vgg["train"]["peak_mem_gb"],
+         cli_bf16_imgs_per_s={c: {w: r[f"bf16_{w}"]["imgs_per_s_after_first_batch"]
+                                  for w in ("yuv420", "rgb")} for c, r in cli.items()},
+         full_res_decode_imgs_per_s=full_res_rate,
          note="kernel ms (SSD300 shapes): NMS at B=8 C=10 K=100 (one launch a "
               "call); depthwise forward summed over the 9 stride-1 layers at B=8 "
               "bf16, filter gradient at B=32 bf16; matcher at B=32 M=100 A=8732 "
               "(one launch a call); each row's `yolo` (and the depthwise row's "
               "`yolo_b32`, `yolo_dx`) gives YOLO-384's shapes as its `shape` "
-              "says; launches: SSD300 serving 512 requests + eval 2 batches + "
-              "40 train steps, YOLO-384 serving 512 requests + eval 2 batches "
-              "for each of 2 artifacts + 30 train steps at B=64")
+              "says, and the NMS and matcher rows' `vgg` (and `vgg_b1`) "
+              "VGG16-SSD512's; launches: SSD300 serving 512 requests + eval 2 "
+              "batches + 40 train steps, YOLO-384 serving 512 requests + eval 2 "
+              "batches for each of 2 artifacts + 30 train steps at B=64, "
+              "VGG16-SSD512 serving 4 modes x (256 b1 + 16 b32 requests) + "
+              "eval 2 batches + 10 train steps at B=32")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

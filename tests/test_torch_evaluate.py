@@ -361,8 +361,16 @@ def _port_dataset(n: int | None = None, size: int = 300):
 
 
 def test_dataset_without_decode_size_is_not_ported():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-        port_pipeline.DetectionDataset.from_bdd100k(LABELS, IMAGES)
+    """Ported since: without a decode_size an image decodes at full
+    resolution, to PIL's pixels, the reference's route there
+    (tests/test_torch_infer_cli.py holds the loader to the reference's)."""
+    from PIL import Image
+
+    ds = port_pipeline.DetectionDataset.from_bdd100k(LABELS, IMAGES)
+    assert ds.decode_size is None
+    with Image.open(IMAGES / ds.records[0]["name"]) as im:
+        want = np.asarray(im.convert("RGB"))
+    np.testing.assert_array_equal(ds[0]["image"], want)
 
 
 def test_eval_loader_order_end_and_padded_final_batch():
@@ -733,7 +741,7 @@ def test_evaluate_cli_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
     (["--calib_batches", "4"], "item 10"),
     (["--multihost"], "item 11"),
     (["--mesh_data", "2"], "item 11"),
-    (["--config", "ssd_vgg16_512"], "item 9"),
+    (["--sync_dir", "sync"], "item 11"),
 ])
 def test_evaluate_cli_refuses_flags_of_later_slices(argv, item):
     with pytest.raises(SystemExit, match=item):

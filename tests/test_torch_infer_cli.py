@@ -1,0 +1,555 @@
+"""The port's serving surface against the JAX reference, on the CPU.
+
+* the host resize (`data/host_resize.py`) bit-equal to
+  `cv2.resize(INTER_LINEAR)` on downscales from 1280×720 and 1920×1080 to
+  300, 384 and 512, on exact 2× downscales (cv2's 2×2-mean path), and on
+  upscales and odd sizes, where the share of bytes that differ, measured
+  0, is asserted 0;
+* the pool's `resize_yuv420_batch` through the port's binding, byte-equal
+  to the reference's binding of the same C source;
+* the full-resolution decode (`decode_full`) sha256-equal to PIL's
+  `Image.open(p).convert("RGB")` on the 64 seed-1 JPEGs and the four train
+  fixtures, and `DetectionDataset(decode_size=None)` batches equal to the
+  reference's PIL route;
+* `Predictor` at `tiny_test_config("ssd")` from the reference's init,
+  against the reference's `Predictor`, for host resize on and off and
+  both wires;
+* the CLI (`python -m bdd100k_tpu_torch.infer --device cpu --dtype
+  float32`) with SSD300 on 8 of the JPEGs and on one image at full
+  resolution: its printed lines equal the reference CLI's lines in f32
+  from `tests/fixtures/torch_ref_infer_cli.json` (same images, classes and
+  count above --score_threshold 0.4; scores and corners within one step of
+  the printed third decimal, measured equal); `--video`, `--quant int8`,
+  `--calib_images` and a `.png` in the directory exit non-zero with their
+  reason; a JPEG that fails to decode on the producer thread exits
+  non-zero; `--out_dir` writes `det_<stem>.png`;
+* the drawing: box outlines equal `cv2.rectangle(thickness=2)`'s pixels,
+  on the border too, and the PNG writer's file reads back in PIL as the
+  same array.
+
+The fixture holds the reference CLI's lines (`bdd100k_tpu.infer.main`,
+its detector built in f32: the reference's CLI has no dtype flag and runs
+in bf16, whose rounding moves printed scores by up to 0.03, far past the
+third decimal) for SSD300, YOLO-384 and VGG16-SSD512 on their synth9k
+artifacts over the 64 JPEGs at --batch_size 32 on the default (yuv420)
+wire, `--wire rgb` and `--host_resize off`, and its `--image` lines for
+image 0. The card's check (`chip_smoke.py`) holds the port's CLI on the
+card to all of them. Regenerate it with `python tests/test_torch_infer_cli.py
+--make-fixture`.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import functools
+import hashlib
+import io
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+ROOT = Path(__file__).resolve().parent.parent
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import torch  # noqa: E402
+
+from bdd100k_tpu_torch import infer as port_infer  # noqa: E402
+from bdd100k_tpu_torch.configs import tiny_test_config  # noqa: E402
+from bdd100k_tpu_torch.data import pipeline as port_pipeline  # noqa: E402
+from bdd100k_tpu_torch.data.host_resize import resize_linear  # noqa: E402
+from bdd100k_tpu_torch.data.native_decode import NativeDecoder, decode_full  # noqa: E402
+from bdd100k_tpu_torch.data.synthetic import generate_synthetic_scenes  # noqa: E402
+from bdd100k_tpu_torch.models.detector import build_detector  # noqa: E402
+from bdd100k_tpu_torch.utils import viz  # noqa: E402
+from bdd100k_tpu_torch.utils.weights import state_dict_from_flax  # noqa: E402
+
+# two torch threads: the suite runs these files beside JAX workers
+torch.set_num_threads(2)
+
+FIXTURES = ROOT / "tests" / "fixtures"
+IMAGES = FIXTURES / "synth_val_seed1" / "images" / "val"
+CLI_FIXTURE = FIXTURES / "torch_ref_infer_cli.json"
+ARTIFACTS = ROOT / "artifacts"
+CONFIGS = {
+    "ssd_mobilenet_300": ARTIFACTS / "ssd_mobilenet_300_synth9k.npz",
+    "yolo_mobilenet_384": ARTIFACTS / "yolo_mobilenet_384_synth9k.npz",
+    "ssd_vgg16_512": ARTIFACTS / "ssd_vgg16_512_synth9k.npz",
+}
+# the directory sweep's modes: name → extra CLI flags
+MODES = {"yuv420": [], "rgb": ["--wire", "rgb"],
+         "host_resize_off": ["--host_resize", "off"]}
+CLI_BATCH = 32
+CPU_IMAGES = 8
+LINE_TOL = 1e-3 + 1e-6  # one step of the printed third decimal
+DET_ATOL = 1e-4
+
+
+def _jpegs() -> list[Path]:
+    return sorted(IMAGES.glob("*.jpg"))
+
+
+# ------------------------------------------------------------ host resize
+
+
+def _decoded(i: int = 0) -> np.ndarray:
+    return decode_full(_jpegs()[i].read_bytes())
+
+
+def _noise(h: int, w: int, seed: int = 0) -> np.ndarray:
+    return np.random.RandomState(seed).randint(0, 256, (h, w, 3), dtype=np.uint8)
+
+
+RESIZE_CASES = {
+    **{f"720p_scene_to_{s}": (lambda: _decoded(), s, s) for s in (300, 384, 512)},
+    **{f"1080p_to_{s}": (lambda: _noise(1080, 1920), s, s) for s in (300, 384, 512)},
+    "2x_1024_to_512": (lambda: _noise(1024, 1024, 1), 512, 512),
+    "2x_768_to_384": (lambda: _noise(768, 768, 2), 384, 384),
+    "2x_720p_to_360x640": (lambda: _noise(720, 1280, 3), 360, 640),
+    "up_375x500_to_384": (lambda: _noise(375, 500, 4), 384, 384),
+    "up_375x500_to_512": (lambda: _noise(375, 500, 5), 512, 512),
+    "odd_97x131_to_61x77": (lambda: _noise(97, 131, 6), 61, 77),
+    "up_7x9_to_31x17": (lambda: _noise(7, 9, 7), 31, 17),
+}
+
+
+@pytest.mark.parametrize("case", sorted(RESIZE_CASES))
+def test_host_resize_bit_equal_to_cv2(case):
+    import cv2
+
+    make, h, w = RESIZE_CASES[case]
+    src = make()
+    want = cv2.resize(src, (w, h), interpolation=cv2.INTER_LINEAR)
+    got = resize_linear(np.stack([src, src[::-1]]), h, w)
+    np.testing.assert_array_equal(got[0], want)
+    np.testing.assert_array_equal(
+        got[1], cv2.resize(src[::-1].copy(), (w, h), interpolation=cv2.INTER_LINEAR))
+
+
+def test_resize_yuv420_batch_equals_the_reference_binding():
+    from bdd100k_tpu.data import native_decode as ref_nd
+
+    assert ref_nd.available(), ref_nd._lib_err
+    frames = np.stack([_decoded(i) for i in range(3)])
+    ref, port = ref_nd.NativeDecoder(2), NativeDecoder(2)
+    try:
+        for src, size in ((frames, 300), (frames, 512), (frames[:, :-1, :-3], 384)):
+            want = ref.resize_yuv420_batch(src, size)
+            got = port.resize_yuv420_batch(src, size)
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)
+        with pytest.raises(ValueError, match="even"):
+            port.resize_yuv420_batch(frames, 301)
+    finally:
+        port.close()
+
+
+# ------------------------------------------------------- full-res decode
+
+
+def test_full_resolution_decode_sha256_equals_pil():
+    from PIL import Image
+
+    paths = _jpegs() + sorted(FIXTURES.glob("synthetic_train_*.jpg"))
+    assert len(paths) == 68
+    assert json.loads(CLI_FIXTURE.read_text())["full_res_sha256"] == _pil_sha256s()
+    for p in paths:
+        with Image.open(p) as im:
+            want = np.asarray(im.convert("RGB"))
+        got = decode_full(p.read_bytes())
+        assert got.shape == want.shape == (720, 1280, 3)
+        assert hashlib.sha256(got.tobytes()).hexdigest() == \
+            hashlib.sha256(want.tobytes()).hexdigest(), p.name
+
+
+def test_full_resolution_decode_refuses_garbage():
+    with pytest.raises(ValueError):
+        decode_full(b"\xff\xd8 not a jpeg")
+    data = _jpegs()[0].read_bytes()
+    with pytest.raises(ValueError):
+        decode_full(data[:2])
+
+
+def test_full_resolution_loader_matches_reference():
+    """`DetectionDataset(decode_size=None)` through `make_loader`: the
+    reference's PIL route (a thread pool over `__getitem__`), batch for
+    batch, the padded final batch included; a JPEG of another size is
+    resized to 720×1280."""
+    from bdd100k_tpu.data.pipeline import DetectionDataset as RefDataset
+    from bdd100k_tpu.data.pipeline import make_loader as ref_loader
+
+    labels = FIXTURES / "synth_val_seed1" / "labels" / "val.json"
+    ds = port_pipeline.DetectionDataset.from_bdd100k(labels, IMAGES)
+    ds.records = ds.records[:5]
+    ref = RefDataset.from_bdd100k(labels, IMAGES)
+    ref.records = ref.records[:5]
+    got = list(port_pipeline.make_loader(ds, 4, shuffle=False, num_epochs=1,
+                                         drop_last=False, num_workers=2))
+    want = list(ref_loader(ref, 4, shuffle=False, num_epochs=1, drop_last=False,
+                           num_workers=2))
+    assert len(got) == len(want) == 2
+    for g, w in zip(got, want):
+        for a, b in zip(g, w):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+    np.testing.assert_array_equal(ds[2]["image"], np.asarray(ref[2]["image"]))
+    with pytest.raises(ValueError, match="even decode_size"):
+        next(port_pipeline.make_loader(ds, 4, wire_format="yuv420"))
+    small = ds.decode_full(_encode_jpeg(_noise(360, 640, 8)))
+    assert small.shape == (720, 1280, 3)
+
+
+def _encode_jpeg(a: np.ndarray) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(a).save(buf, format="JPEG", quality=90)
+    return buf.getvalue()
+
+
+# ------------------------------------------------------------ Predictor
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_tiny_ssd():
+    from bdd100k_tpu.configs.detector_configs import tiny_test_config as jax_tiny
+    from bdd100k_tpu.models.detector import build_detector as jax_build
+
+    bundle = jax_build(jax_tiny("ssd"), dtype=jnp.float32)
+    return bundle, jax.device_get(bundle.init(jax.random.PRNGKey(0)))
+
+
+# (image, slot) pairs whose classes come out crossed: the random-init
+# model's scores tie there (equal in the reference to 1e-8), and the yuv420
+# wire's f32 colour conversion moves them by an ulp (max score difference
+# 2.2e-8)
+PREDICTOR_NEAR_TIE_SWAPS = {
+    ("rgb", False): (), ("rgb", True): (),
+    ("yuv420", False): ((1, 140),), ("yuv420", True): ((2, 135),),
+}
+NEAR_TIE = 1e-6
+
+
+def _undo_near_tie_swaps(got, want, swaps):
+    """`got` with each named adjacent pair swapped back, after checking
+    that it is a near-tie of the reference crossed in the port."""
+    arrays = [np.array(a, copy=True) for a in got]
+    for i, s in swaps:
+        pair = slice(s, s + 2)
+        assert abs(float(want.scores[i, s] - want.scores[i, s + 1])) < NEAR_TIE
+        np.testing.assert_array_equal(got.classes[i, pair],
+                                      np.asarray(want.classes)[i, pair][::-1])
+        for a in arrays:
+            a[i, pair] = a[i, pair][::-1].copy()
+    return type(got)(*arrays)
+
+
+@pytest.mark.parametrize("host_resize", [False, True], ids=["device_resize",
+                                                            "host_resize"])
+@pytest.mark.parametrize("wire", ["rgb", "yuv420"])
+def test_tiny_predictor_matches_jax_with_host_resize_and_wires(host_resize, wire):
+    """The port's `Predictor` and the reference's, from the reference's
+    init at the tiny SSD config, on three 720p frames padded to a batch of
+    four: host resize by cv2 (reference) and the port's numpy resize, the
+    yuv420 wire through the pool's resize and conversion, or the host's
+    conversion of the full frames."""
+    from bdd100k_tpu.infer import Predictor as JaxPredictor
+
+    ref_bundle, variables = _jax_tiny_ssd()
+    state = type("State", (), {"params": variables["params"],
+                               "batch_stats": variables["batch_stats"]})
+    ref = JaxPredictor(ref_bundle, state, batch_size=4, host_resize=host_resize,
+                       wire=wire)
+    bundle = build_detector(tiny_test_config("ssd"), dtype=torch.float32, device="cpu")
+    bundle.model.load_state_dict(state_dict_from_flax(variables["params"],
+                                                      variables["batch_stats"]))
+    pred = port_infer.Predictor(bundle, batch_size=4, host_resize=host_resize,
+                                wire=wire)
+    frames, _, _ = generate_synthetic_scenes(3, seed=1)
+    got, want = pred(frames), ref(frames)
+    assert got.valid.shape == (3, 200) and got.valid.any()
+    got = _undo_near_tie_swaps(got, want, PREDICTOR_NEAR_TIE_SWAPS[wire, host_resize])
+    valid = np.asarray(want.valid)
+    np.testing.assert_array_equal(got.valid, valid)
+    np.testing.assert_array_equal(got.classes, np.asarray(want.classes))
+    np.testing.assert_allclose(got.scores, np.asarray(want.scores), rtol=0, atol=DET_ATOL)
+    np.testing.assert_allclose(got.boxes[valid], np.asarray(want.boxes)[valid],
+                               rtol=0, atol=DET_ATOL)
+
+
+@pytest.mark.parametrize("wire,host_resize,size,want", [
+    ("auto", True, 300, "yuv420"), ("auto", True, 301, "rgb"),
+    ("auto", False, 300, "rgb"), ("yuv420", False, 300, "yuv420"),
+    ("rgb", True, 300, "rgb")])
+def test_wire_resolves_as_the_reference(wire, host_resize, size, want):
+    # the reference's expression, bdd100k_tpu/infer.py load_predictor
+    ref = ("yuv420" if wire == "yuv420" or (wire == "auto" and host_resize
+                                            and size % 2 == 0) else "rgb")
+    assert port_infer.resolve_predictor_wire(wire, host_resize, size) == ref == want
+
+
+def test_load_predictor_refuses_int8():
+    with pytest.raises(NotImplementedError, match="item 10"):
+        port_infer.load_predictor("ssd_mobilenet_300",
+                                  CONFIGS["ssd_mobilenet_300"], device="cpu",
+                                  quant="int8")
+
+
+# ------------------------------------------------------------------ CLI
+
+
+def _reference_lines(ref: dict, *keys: str) -> dict:
+    """The fixture's printed lines under `keys`, parsed."""
+    for k in keys:
+        ref = ref[k]
+    return port_infer.parse_detection_lines("\n".join(ref))
+
+
+def assert_lines_agree(got: dict, want: dict, names: list[str]) -> None:
+    """Per image: the same number of lines and classes; each line has a
+    reference line of its class with score and corners within LINE_TOL."""
+    for name in names:
+        g, w = sorted(got.get(name, [])), sorted(want.get(name, []))
+        assert [x[0] for x in g] == [x[0] for x in w], (name, g, w)
+        left = list(w)
+        for cls, score, box in g:
+            hit = [j for j, (c, s, b) in enumerate(left) if c == cls
+                   and abs(s - score) <= LINE_TOL
+                   and max(abs(p - q) for p, q in zip(b, box)) <= LINE_TOL]
+            assert hit, (name, cls, score, box, w)
+            left.pop(hit[0])
+
+
+def _cli(argv) -> str:
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        port_infer.main(argv)
+    return buf.getvalue()
+
+
+@pytest.fixture(scope="module")
+def eight_jpegs(tmp_path_factory):
+    d = tmp_path_factory.mktemp("eight")
+    for p in _jpegs()[:CPU_IMAGES]:
+        (d / p.name).symlink_to(p)
+    return d
+
+
+def test_cli_dir_sweep_matches_the_reference_lines(eight_jpegs):
+    """SSD300 on 8 JPEGs at batch 4, the default (yuv420) wire, f32 on the
+    CPU, against the reference CLI's lines for the same images."""
+    ref = json.loads(CLI_FIXTURE.read_text())
+    out = _cli(["--config", "ssd_mobilenet_300",
+                "--ckpt_dir", str(CONFIGS["ssd_mobilenet_300"]),
+                "--image_dir", str(eight_jpegs), "--batch_size", "4",
+                "--device", "cpu", "--dtype", "float32"])
+    assert f"{CPU_IMAGES} images in" in out and "imgs/sec" in out
+    names = [p.name for p in _jpegs()[:CPU_IMAGES]]
+    got = port_infer.parse_detection_lines(out)
+    assert sum(map(len, got.values())) > 10
+    assert_lines_agree(got, _reference_lines(ref, "dir", "ssd_mobilenet_300",
+                                             "yuv420"), names)
+
+
+def test_cli_single_image_matches_the_reference_lines(tmp_path):
+    """`--image` decodes at full resolution and resizes on the device; its
+    lines equal the reference CLI's, and --out_dir writes det_<stem>.png."""
+    ref = json.loads(CLI_FIXTURE.read_text())
+    image = _jpegs()[0]
+    out = _cli(["--config", "ssd_mobilenet_300",
+                "--ckpt_dir", str(CONFIGS["ssd_mobilenet_300"]),
+                "--image", str(image), "--device", "cpu", "--dtype", "float32",
+                "--out_dir", str(tmp_path)])
+    assert "warm latency" in out
+    assert_lines_agree(port_infer.parse_detection_lines(out),
+                       _reference_lines(ref, "single", "ssd_mobilenet_300"),
+                       [image.name])
+    from PIL import Image
+
+    with Image.open(tmp_path / f"det_{image.stem}.png") as im:
+        assert im.size == (1280, 720)
+
+
+def test_cli_out_dir_writes_a_png_per_image(eight_jpegs, tmp_path):
+    out = _cli(["--config", "ssd_mobilenet_300",
+                "--ckpt_dir", str(CONFIGS["ssd_mobilenet_300"]),
+                "--image_dir", str(eight_jpegs), "--batch_size", "8",
+                "--device", "cpu", "--out_dir", str(tmp_path)])
+    assert "8 images in" in out
+    from PIL import Image
+
+    for p in _jpegs()[:CPU_IMAGES]:
+        with Image.open(tmp_path / f"det_{p.stem}.png") as im:
+            assert im.size == (300, 300)  # drawn on the decode at model size
+
+
+def test_cli_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        port_infer.main(["--image", str(_jpegs()[0]),
+                         "--ckpt_dir", str(CONFIGS["ssd_mobilenet_300"])])
+
+
+@pytest.mark.parametrize("argv,reason", [
+    (["--video", "drive.mp4"], "cv2.VideoCapture"),
+    (["--image", "x.jpg", "--quant", "int8"], "item 10"),
+    (["--image", "x.jpg", "--calib_images", "calib"], "item 10"),
+], ids=["video", "quant", "calib_images"])
+def test_cli_refuses_with_its_reason(argv, reason):
+    with pytest.raises(SystemExit, match=reason):
+        port_infer.main(argv + ["--device", "cpu"])
+
+
+def test_cli_refuses_png_input(tmp_path):
+    (tmp_path / "a.jpg").symlink_to(_jpegs()[0])
+    (tmp_path / "b.png").write_bytes(b"\x89PNG\r\n\x1a\n")
+    with pytest.raises(SystemExit, match="PNG input.*item 13"):
+        port_infer.main(["--image_dir", str(tmp_path), "--device", "cpu",
+                         "--ckpt_dir", str(CONFIGS["ssd_mobilenet_300"])])
+
+
+def test_cli_decode_error_on_the_producer_exits_non_zero(tmp_path):
+    """A JPEG that fails to decode mid-sweep surfaces in the consumer and
+    ends the process with a non-zero code, never a clean end."""
+    for p in _jpegs()[:4]:
+        (tmp_path / p.name).symlink_to(p)
+    (tmp_path / "synthetic_val_00002.jpg").unlink()
+    (tmp_path / "synthetic_val_00002.jpg").write_bytes(b"\xff\xd8 broken")
+    proc = subprocess.run(
+        [sys.executable, "-m", "bdd100k_tpu_torch.infer",
+         "--ckpt_dir", str(CONFIGS["ssd_mobilenet_300"]),
+         "--image_dir", str(tmp_path), "--batch_size", "2", "--device", "cpu"],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "OMP_NUM_THREADS": "2"})
+    assert proc.returncode != 0
+    assert "image_dir pipeline failed" in proc.stderr
+    assert "failed to decode" in proc.stderr
+    assert "imgs/sec" not in proc.stdout
+
+
+# ------------------------------------------------------------------ viz
+
+
+RECTS = {
+    "inside": (5, 4, 14, 12), "reversed": (14, 12, 5, 4), "thin": (3, 3, 3, 9),
+    "point": (10, 10, 10, 10), "border": (0, 0, 29, 21),
+    "past_the_border": (-4, -3, 35, 30), "one_corner_out": (20, 15, 40, 40),
+}
+
+
+@pytest.mark.parametrize("rect", sorted(RECTS))
+def test_rectangle_mask_equals_cv2(rect):
+    import cv2
+
+    x1, y1, x2, y2 = RECTS[rect]
+    want = np.zeros((22, 30), np.uint8)
+    cv2.rectangle(want, (x1, y1), (x2, y2), 255, 2)
+    got = viz.rectangle_mask((22, 30), x1, y1, x2, y2)
+    np.testing.assert_array_equal(got, want > 0)
+
+
+def test_draw_detections_draws_boxes_and_labels():
+    """The outlines land where cv2.rectangle's do, in the class colour;
+    the label sits above the box; nothing else changes."""
+    import cv2
+
+    img = np.full((120, 160, 3), 7, np.uint8)
+    boxes = np.array([[0.25, 0.5, 0.75, 0.9], [0.1, 0.1, 0.2, 0.2],
+                      [0.0, 0.0, 1.0, 1.0]], np.float32)
+    drawn = viz.draw_detections(img, boxes, np.array([0.9, 0.3, 0.8]),
+                                np.array([1, 2, 10]), np.array([True, True, False]),
+                                score_threshold=0.5)
+    want = np.zeros((120, 160), np.uint8)
+    cv2.rectangle(want, (40, 60), (120, 108), 255, 2)
+    changed = (drawn != img).any(-1)
+    assert (changed >= (want > 0)).all()
+    assert (drawn[want > 0] == (66, 135, 245)).all()
+    label = changed & ~(want > 0)
+    rows = np.flatnonzero(label.any(1))
+    assert label.any() and rows.max() < 60 and rows.min() >= 46
+    assert (img == 7).all()
+
+
+def test_png_writer_reads_back_in_pil(tmp_path):
+    from PIL import Image
+
+    a = np.random.RandomState(9).randint(0, 256, (37, 53, 3), dtype=np.uint8)
+    viz.write_png(tmp_path / "a.png", a)
+    with Image.open(tmp_path / "a.png") as im:
+        assert im.mode == "RGB"
+        np.testing.assert_array_equal(np.asarray(im), a)
+
+
+# ------------------------------------------------------------------ fixture
+
+
+def _reference_cli(argv) -> str:
+    """The reference's CLI with its detector in f32 → its stdout."""
+    import bdd100k_tpu.infer as ref_infer
+    from bdd100k_tpu.models.detector import build_detector as jax_build
+
+    real = ref_infer.build_detector
+    ref_infer.build_detector = functools.partial(jax_build, dtype=jnp.float32)
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            ref_infer.main(argv)
+    finally:
+        ref_infer.build_detector = real
+    return buf.getvalue()
+
+
+def _pil_sha256s() -> dict[str, str]:
+    """{name: sha256 of PIL's full-resolution RGB decode} of the 64 JPEGs,
+    the reference's pixels for the card's check of `decode_full`."""
+    from PIL import Image
+
+    out = {}
+    for p in _jpegs():
+        with Image.open(p) as im:
+            out[p.name] = hashlib.sha256(np.asarray(im.convert("RGB")).tobytes()
+                                         ).hexdigest()
+    return out
+
+
+def _detection_lines(text: str) -> list[str]:
+    """The CLI's detection lines, each with its image's file name only."""
+    return [f"{Path(name).name}: {rest}" for name, rest in
+            (line.rsplit(": ", 1) for line in text.splitlines()
+             if "]" in line and ": " in line)]
+
+
+def make_fixture() -> None:
+    jax.config.update("jax_platforms", "cpu")
+    out = {"dir": {}, "single": {}, "meta": {
+        "command": "bdd100k_tpu.infer.main with build_detector(dtype=float32)",
+        "image_dir": str(IMAGES.relative_to(ROOT)), "batch_size": CLI_BATCH,
+        "score_threshold": 0.4, "jax": jax.__version__,
+        "modes": {k: v for k, v in MODES.items()}}}
+    for config, artifact in CONFIGS.items():
+        base = ["--config", config, "--ckpt_dir", str(artifact)]
+        out["dir"][config] = {}
+        for mode, extra in MODES.items():
+            text = _reference_cli(base + ["--image_dir", str(IMAGES),
+                                          "--batch_size", str(CLI_BATCH), *extra])
+            out["dir"][config][mode] = _detection_lines(text)
+            n = len(out["dir"][config][mode])
+            print(f"{config} {mode}: {n} lines", flush=True)
+        text = _reference_cli(base + ["--image", str(_jpegs()[0])])
+        out["single"][config] = _detection_lines(text)
+    out["full_res_sha256"] = _pil_sha256s()
+    CLI_FIXTURE.write_text(json.dumps(out, indent=1, sort_keys=True) + "\n")
+    print(f"wrote {CLI_FIXTURE} ({CLI_FIXTURE.stat().st_size} bytes)")
+
+
+if __name__ == "__main__":
+    if "--make-fixture" in sys.argv:
+        make_fixture()
+    else:
+        sys.exit(pytest.main([__file__, "-q"]))
