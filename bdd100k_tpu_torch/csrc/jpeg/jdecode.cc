@@ -1,5 +1,6 @@
-// A sequential-Huffman JPEG decoder behind the libjpeg API subset of
-// jpeglib.h, written to give libjpeg-turbo's pixels bit for bit.
+// A sequential- and progressive-Huffman JPEG decoder behind the libjpeg
+// API subset of jpeglib.h, written to give libjpeg-turbo's pixels bit for
+// bit.
 //
 // The arithmetic follows the Independent JPEG Group's integer routines,
 // which libjpeg-turbo keeps (and matches in its SIMD code):
@@ -14,7 +15,13 @@
 //   * the fixed-point YCbCr -> RGB tables of jdcolor.c;
 //   * the entropy decoder's handling of corrupt data: a code of more than
 //     16 bits decodes as 0, a segment that ends early is padded with zero
-//     bits and the MCUs after it stay zero up to the next restart marker.
+//     bits and the MCUs after it stay zero up to the next restart marker;
+//   * progressive scans (jdphuff.c): DC first and refine scans, AC first
+//     and refine scans with their end-of-band runs, decoded into the
+//     whole image's coefficients, which are IDCT'd once the input ends
+//     (jdcoefct.c's multi-scan mode). libjpeg's interblock smoothing of
+//     coefficients that are not yet fully refined (a file cut before its
+//     last scans) is not done.
 // This software is based in part on the work of the Independent JPEG
 // Group.
 //
@@ -478,6 +485,7 @@ struct Decoder {
   int adobe_transform = 0;
 
   bool have_frame = false;
+  bool progressive = false;
   int width = 0, height = 0;
   std::vector<Component> comps;
   int hmax = 1, vmax = 1;
@@ -581,11 +589,10 @@ struct Decoder {
   }
 
   void read_sof(int marker) {
-    if (marker == 0xC2 || marker == 0xC6 || marker == 0xCA || marker == 0xCE)
-      fail("progressive JPEG is not supported");
-    if (marker != 0xC0 && marker != 0xC1)
-      fail("only sequential Huffman JPEG is supported");
+    if (marker != 0xC0 && marker != 0xC1 && marker != 0xC2)
+      fail("only sequential and progressive Huffman JPEG is supported");
     if (have_frame) fail("more than one frame");
+    progressive = marker == 0xC2;
     const int len = u16();
     if (byte() != 8) fail("only 8-bit JPEG is supported");
     height = u16();
@@ -692,6 +699,91 @@ struct Decoder {
     }
   }
 
+  // ---- progressive scans (jdphuff.c), one block each
+
+  static void decode_dc_first(BitReader& br, const Huffman& dct, int& last_dc,
+                              int al, int16_t* blk) {
+    int s = dct.decode(br);
+    if (s) s = extend(br.get(s), s);
+    last_dc = static_cast<int>(static_cast<unsigned>(s) +
+                               static_cast<unsigned>(last_dc));
+    blk[0] = static_cast<int16_t>(static_cast<unsigned>(last_dc) << al);
+  }
+
+  static void decode_dc_refine(BitReader& br, int al, int16_t* blk) {
+    if (br.get(1)) blk[0] = static_cast<int16_t>(blk[0] | (1 << al));
+  }
+
+  static void decode_ac_first(BitReader& br, const Huffman& act, int ss,
+                              int se, int al, int& eobrun, int16_t* blk) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    for (int k = ss; k <= se; ++k) {
+      const int rs = act.decode(br);
+      int r = rs >> 4;
+      const int s = rs & 15;
+      if (s) {
+        k += r;
+        blk[kNatural[k]] = static_cast<int16_t>(
+            static_cast<unsigned>(extend(br.get(s), s)) << al);
+      } else if (r == 15) {
+        k += 15;
+      } else {
+        eobrun = 1 << r;
+        if (r) eobrun += br.get(r);
+        --eobrun;
+        break;
+      }
+    }
+  }
+
+  // One correction bit for an already-nonzero coefficient.
+  static void refine_nonzero(BitReader& br, int16_t* coef, int p1, int m1) {
+    if (br.get(1) && (*coef & p1) == 0)
+      *coef = static_cast<int16_t>(*coef + (*coef >= 0 ? p1 : m1));
+  }
+
+  static void decode_ac_refine(BitReader& br, const Huffman& act, int ss,
+                               int se, int al, int& eobrun, int16_t* blk) {
+    const int p1 = 1 << al;
+    const int m1 = static_cast<int>(~0u << al);
+    int k = ss;
+    if (eobrun == 0) {
+      for (; k <= se; ++k) {
+        const int rs = act.decode(br);
+        int r = rs >> 4;
+        int s = rs & 15;
+        if (s) {
+          s = br.get(1) ? p1 : m1;  // a new coefficient is always +-1
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += br.get(r);
+          break;  // the rest of the block is the end-of-band run's
+        }
+        // skip r zero coefficients, refining the nonzero ones passed over
+        do {
+          int16_t* c = &blk[kNatural[k]];
+          if (*c != 0) {
+            refine_nonzero(br, c, p1, m1);
+          } else if (--r < 0) {
+            break;
+          }
+          ++k;
+        } while (k <= se);
+        if (s) blk[kNatural[k]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; k <= se; ++k) {
+        int16_t* c = &blk[kNatural[k]];
+        if (*c != 0) refine_nonzero(br, c, p1, m1);
+      }
+      --eobrun;
+    }
+  }
+
   // At a restart: drop the segment's last bits and read the RSTn marker.
   void restart(BitReader& br, int* last_dc, int n) {
     br.reset();
@@ -724,8 +816,6 @@ struct Decoder {
       c->dc_tbl = tables >> 4;
       c->ac_tbl = tables & 15;
       if (c->dc_tbl > 3 || c->ac_tbl > 3) fail("bad Huffman table index");
-      if (!dc[c->dc_tbl].defined || !ac[c->ac_tbl].defined)
-        fail("a Huffman table is missing");
       if (!c->quant_latched) {
         if (!qt_defined[c->tq]) fail("a quantization table is missing");
         std::memcpy(c->quant, qt[c->tq], sizeof(c->quant));
@@ -735,24 +825,58 @@ struct Decoder {
         c->coef.assign(static_cast<size_t>(c->bw_pad) * c->bh_pad * 64, 0);
       sc.push_back(c);
     }
-    for (int i = 0; i < 3; ++i) byte();  // Ss, Se, Ah/Al: fixed when sequential
+    // Ss, Se, Ah/Al: fixed when sequential (libjpeg only warns otherwise)
+    const int ss = byte(), se = byte(), ahal = byte();
+    const int ah = ahal >> 4, al = ahal & 15;
+    const bool dc_band = ss == 0;
+    if (progressive) {  // jdphuff.c's checks of the scan's parameters
+      const bool bad = (dc_band ? se != 0 : (ss > se || se > 63 || ns != 1)) ||
+                       (ah != 0 && al != ah - 1) || al > 13;
+      if (bad) fail("bad progressive scan parameters");
+    }
+    // the tables the scan decodes with: a DC refinement needs none
+    const bool need_dc = !progressive || (dc_band && ah == 0);
+    const bool need_ac = !progressive || !dc_band;
+    for (const Component* c : sc)
+      if ((need_dc && !dc[c->dc_tbl].defined) ||
+          (need_ac && !ac[c->ac_tbl].defined))
+        fail("a Huffman table is missing");
 
     BitReader br;
     br.data = data;
     br.size = size;
     br.pos = pos;
     int last_dc[4] = {0, 0, 0, 0};
+    int eobrun = 0;
     int to_go = restart_interval;
 
     auto mcu_prologue = [&]() {
       if (restart_interval) {
         if (to_go == 0) {
           restart(br, last_dc, ns);
+          eobrun = 0;
           to_go = restart_interval;
         }
         --to_go;
       }
-      return !br.insufficient;
+      // a DC refinement reads on past the data's end: its zero bits change
+      // nothing
+      return !br.insufficient || (progressive && dc_band && ah != 0);
+    };
+    auto block = [&](int i, int16_t* blk) {
+      const Component& c = *sc[i];
+      if (!progressive) {
+        decode_block(br, dc[c.dc_tbl], ac[c.ac_tbl], last_dc[i], blk);
+      } else if (dc_band) {
+        if (ah == 0)
+          decode_dc_first(br, dc[c.dc_tbl], last_dc[i], al, blk);
+        else
+          decode_dc_refine(br, al, blk);
+      } else if (ah == 0) {
+        decode_ac_first(br, ac[c.ac_tbl], ss, se, al, eobrun, blk);
+      } else {
+        decode_ac_refine(br, ac[c.ac_tbl], ss, se, al, eobrun, blk);
+      }
     };
 
     if (ns == 1) {  // non-interleaved: the component's own blocks, no padding
@@ -760,9 +884,7 @@ struct Decoder {
       for (int by = 0; by < c.bh; ++by)
         for (int bx = 0; bx < c.bw; ++bx) {
           if (!mcu_prologue()) continue;
-          int16_t* blk =
-              &c.coef[(static_cast<size_t>(by) * c.bw_pad + bx) * 64];
-          decode_block(br, dc[c.dc_tbl], ac[c.ac_tbl], last_dc[0], blk);
+          block(0, &c.coef[(static_cast<size_t>(by) * c.bw_pad + bx) * 64]);
         }
     } else {
       for (int my = 0; my < mcuy; ++my)
@@ -774,8 +896,7 @@ struct Decoder {
               for (int h = 0; h < c.h; ++h) {
                 const size_t by = static_cast<size_t>(my) * c.v + v;
                 const size_t bx = static_cast<size_t>(mx) * c.h + h;
-                int16_t* blk = &c.coef[(by * c.bw_pad + bx) * 64];
-                decode_block(br, dc[c.dc_tbl], ac[c.ac_tbl], last_dc[i], blk);
+                block(i, &c.coef[(by * c.bw_pad + bx) * 64]);
               }
           }
         }

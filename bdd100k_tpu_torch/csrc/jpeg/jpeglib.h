@@ -8,10 +8,10 @@
  * gives with its default settings (islow integer IDCT and its reduced
  * 4x4 / 2x2 / 1x1 forms, fancy upsampling, the YCbCr tables).
  *
- * Scope: baseline and extended sequential Huffman JPEGs, 8-bit, one or
- * more scans, grayscale or YCbCr, any sampling factors whose ratios are
- * integral, restart intervals, scale 1/1, 1/2, 1/4 and 1/8. Progressive,
- * arithmetic-coded, lossless, 12-bit, RGB (Adobe) and CMYK files are
+ * Scope: baseline and extended sequential and progressive Huffman JPEGs,
+ * 8-bit, one or more scans, grayscale or YCbCr, any sampling factors whose
+ * ratios are integral, restart intervals, scale 1/1, 1/2, 1/4 and 1/8.
+ * Arithmetic-coded, lossless, 12-bit, RGB (Adobe) and CMYK files are
  * refused through error_exit.
  *
  * The functions are hidden outside the shared library they are linked

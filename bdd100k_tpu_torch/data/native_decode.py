@@ -11,7 +11,7 @@ decoded RGB frames resizes and converts to those planes in one call too
 (`resize_yuv420_batch`, the serving path's host resize). `decode_full`
 decodes one JPEG at full resolution, with no resize, in the calling thread.
 The library is built at first use (`utils/host_build.py`); a JPEG the
-decoder refuses (progressive, arithmetic-coded, CMYK) fails its call.
+decoder refuses (arithmetic-coded, 12-bit, CMYK) fails its call.
 """
 
 from __future__ import annotations

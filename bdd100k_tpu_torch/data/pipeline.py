@@ -37,7 +37,7 @@ from bdd100k_tpu_torch.data.bdd100k import (
     load_bdd100k_labels,
     pad_ground_truth,
 )
-from bdd100k_tpu_torch.data.host_resize import resize_linear
+from bdd100k_tpu_torch.data.host_resize import resize_bicubic
 from bdd100k_tpu_torch.data.native_decode import NativeDecoder, decode_full
 
 
@@ -124,9 +124,9 @@ class DetectionDataset:
     resize (boxes are normalized, so the GT is unaffected); the eval path
     decodes at the model's input size. `decode_size=None`: each JPEG
     decodes at full resolution (`decode_full`, PIL's pixels), and an image
-    that is not image_height × image_width is resized to it — with the
-    bytes of cv2's INTER_LINEAR (`data/host_resize.py`), where the
-    reference's PIL route resizes with PIL's default filter."""
+    that is not image_height × image_width is resized to it with PIL's
+    default filter, bicubic (`data/host_resize.resize_bicubic`), as the
+    reference's PIL route resizes it."""
 
     def __init__(
         self,
@@ -163,8 +163,8 @@ class DetectionDataset:
         image_width if it is another size."""
         image = decode_full(jpeg)
         if image.shape[:2] != (self.image_height, self.image_width):
-            image = resize_linear(image[None], self.image_height,
-                                  self.image_width)[0]
+            image = resize_bicubic(image[None], self.image_height,
+                                   self.image_width)[0]
         return image
 
     def __getitem__(self, i: int) -> dict:

@@ -114,6 +114,9 @@ def parse_args(argv=None):
                    help="not ported yet (ROADMAP Queue 1 item 11)")
     p.add_argument("--sync_dir", default=None,
                    help="not ported yet (ROADMAP Queue 1 item 11)")
+    p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                   help="the convs' working type; float32 turns TF32 off, "
+                        "for comparisons with the reference's f32 mAP")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without CUDA) or cpu")
     return p.parse_args(argv)
@@ -273,7 +276,11 @@ def main(argv=None) -> dict:
     if args.per_class_topk is not None:
         det_cfg = dataclasses.replace(det_cfg, postprocess=dataclasses.replace(
             det_cfg.postprocess, per_class_topk=args.per_class_topk))
-    bundle = build_detector(det_cfg, device=device)
+    dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
+    if args.dtype == "float32":  # f32 means f32: no TF32 in cuDNN or matmuls
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    bundle = build_detector(det_cfg, dtype=dtype, device=device)
     if args.ckpt_dir:
         step = restore_eval_weights(bundle.model, args.ckpt_dir, ema=args.ema,
                                     expect_config=det_cfg.name)

@@ -30,6 +30,7 @@ from bdd100k_tpu_torch.data.augment import (
     AugmentConfig,
     augment_batch,
     preprocess_eval_batch,
+    yuv420_to_rgb_batch,
 )
 from bdd100k_tpu_torch.models.detector import DetectorBundle
 from bdd100k_tpu_torch.models.losses import LossBreakdown, ssd_loss, yolo_loss
@@ -171,6 +172,13 @@ def detection_loss(bundle: DetectorBundle, loc_preds, cls_preds, gt_boxes,
                      cfg.neg_pos_ratio)
 
 
+def yuv420_rgb_u8(y: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
+    """The yuv420 wire's planes → uint8 RGB (B, S, S, 3): the BT.601
+    conversion scaled to 0..255, plus 0.5, truncated (reference:
+    bdd100k_tpu/parallel/train_step.py:197-205)."""
+    return (yuv420_to_rgb_batch(y, uv) * 255.0 + 0.5).to(torch.uint8)
+
+
 def make_train_step(
     bundle: DetectorBundle,
     augment_cfg: AugmentConfig | None = None,
@@ -180,8 +188,10 @@ def make_train_step(
     """step(state, gen, images, gt_boxes, gt_labels, gt_mask) → metrics.
 
     uint8 images are native-resolution frames and go through the augment
-    (draws from `gen`, a generator on the device); float images are taken
-    as already preprocessed (B, S, S, 3) and bypass it, as the reference
+    (draws from `gen`, a generator on the device); a (y, uv) pair from the
+    yuv420 wire is first rebuilt into uint8 RGB on the device, as the
+    reference does (`yuv420_rgb_u8`); float images are taken as already
+    preprocessed (B, S, S, 3) and bypass the augment, as the reference
     does. The metrics are device scalars: loss, conf_loss, loc_loss and
     grad_norm (before the clip). `device` defaults to CUDA and raises
     without it; the bundle must live on it."""
@@ -195,6 +205,8 @@ def make_train_step(
     def step(state: TrainState, gen, images, gt_boxes, gt_labels, gt_mask):
         model = state.model
         model.train()
+        if isinstance(images, (tuple, list)):
+            images = yuv420_rgb_u8(*images)
         if images.dtype == torch.uint8:
             images, gt_boxes, gt_labels, gt_mask = augment_batch(
                 gen, images, gt_boxes, gt_labels, gt_mask, augment_cfg)
@@ -231,6 +243,7 @@ def make_eval_step(bundle: DetectorBundle) -> Callable:
     model = bundle.model.eval()
 
     def step(images) -> Detections:
+        model.eval()  # a train step between two calls leaves train mode
         with torch.inference_mode():
             if isinstance(images, (tuple, list)) or images.dtype == torch.uint8:
                 images = preprocess_eval_batch(images, size)

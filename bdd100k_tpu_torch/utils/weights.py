@@ -196,7 +196,7 @@ def restore_eval_weights(
             raise SystemExit(
                 f"--ema requested but {path} was exported from "
                 f"source={meta.get('source', 'unknown')!r}; re-export with "
-                "scripts/export_weights.py --ema")
+                "python -m bdd100k_tpu_torch.scripts.export_weights --ema")
         model.load_state_dict(sd)
         return int(meta.get("step", 0))
     from bdd100k_tpu_torch.utils.checkpoint import CheckpointManager

@@ -5,7 +5,7 @@
 
 Builds the port's hand-written CUDA kernels from `bdd100k_tpu_torch/csrc`,
 holds each against its plain PyTorch version at the shapes the main paths
-give it, then drives the main paths of two model families at full width.
+give it, then drives the main paths of three model families at full width.
 SSD-MobileNet-300: serving (the committed trained artifact, through
 `load_predictor`), eval (`python -m bdd100k_tpu_torch.evaluate` from the
 64 committed seed-1 JPEGs to mAP, through the decode pool built from
@@ -25,7 +25,16 @@ the bf16 CLI), the matcher at B=32 on its 24564 anchors and the trainer
 at batch 32. Then the serving CLI, `python -m bdd100k_tpu_torch.infer`,
 as subprocesses for all three families, its printed detections held to
 the reference CLI's f32 lines in `tests/fixtures/torch_ref_infer_cli.json`,
-and the full-resolution JPEG decode held to PIL's pixels.
+and the full-resolution JPEG decode held to PIL's pixels. Then training
+from JPEG files: SSD300 at B=32 from the 64 committed JPEGs at
+--decode_size 512 on the yuv420 wire, its backbone seeded from the
+committed artifact, with an EMA shadow and a torch.profiler window (the
+card's busy share), again at full resolution on the rgb wire, and
+VGG16-SSD512 seeded from a torchvision-layout .pth; the weights exporter
+on the first run (its artifact equal to the EMA shadow in fp16) and an
+f32 eval of that artifact; progressive JPEGs and PIL's bicubic resize of
+non-720p frames held to the reference's sha256s in
+`tests/fixtures/decode_repairs/ref_sha256.json`.
 Each path is checked to have run through its kernels and to give the
 right output. NMS and the matcher are also held bit-equal at the edges of
 what they take (K from 1 to 256, greedy-trap chains; zero-area and
@@ -2195,6 +2204,418 @@ def phase_full_res_decode(nproc: int) -> float:
     return rate
 
 
+# ------------------------------------------------------ train from files
+
+FILES_STEPS = 30          # train_files: SSD300 at B=32 from the 64 JPEGs
+FILES_PROFILE = (10, 13)  # --profile_steps of train_files
+FILES_DECODE = 512        # --decode_size of train_files (the yuv420 wire)
+FILES_FULL_STEPS = 8      # train_files_full: --decode_size 0, the rgb wire
+FILES_FULL_PROFILE = (4, 7)
+VGG_PRE_STEPS = 5         # vgg_pretrained: ssd_vgg16_512 from a torchvision .pth
+LOADER_BATCHES = 8        # batches timed for the loader's own rate
+REPAIRS = ROOT / "tests" / "fixtures" / "decode_repairs"
+# torchvision vgg16's `features` conv indices and their (in, out) channels
+TV_VGG16 = ((0, 3, 64), (2, 64, 64), (5, 64, 128), (7, 128, 128), (10, 128, 256),
+            (12, 256, 256), (14, 256, 256), (17, 256, 512), (19, 512, 512),
+            (21, 512, 512), (24, 512, 512), (26, 512, 512), (28, 512, 512))
+TV_VGG16_NAMES = tuple(f"block{b}.conv{c}" for b, n in ((1, 2), (2, 2), (3, 3),
+                                                      (4, 3), (5, 3))
+                       for c in range(1, n + 1))
+
+
+def files_argv(config: str, batch: int, steps: int, run_dir: Path,
+               decode_size: int, nproc: int, *extra: str) -> list[str]:
+    """The trainer's flags for a run from the 64 committed JPEGs and their
+    labels, as a user types them."""
+    import os
+
+    return ["--config", config,
+            "--labels", os.path.relpath(SYNTH_DIR / "labels" / "val.json"),
+            "--image_dir", os.path.relpath(SYNTH_DIR / "images" / "val"),
+            "--decode_size", str(decode_size), "--wire", "auto",
+            "--batch_size", str(batch), "--total_steps", str(steps),
+            "--warmup_steps", "0", "--log_every", "1",
+            "--checkpoint_every", str(steps), "--seed", "0",
+            "--num_workers", str(nproc), "--ckpt_dir", str(run_dir),
+            "--no_resume", *extra]
+
+
+def trace_busy(stdout: str) -> dict:
+    """The trainer's `--profile_steps` window: its wall time (the line it
+    prints) and the card's busy time in the trace it wrote (the union of
+    kernel, memcpy and memset intervals) → busy share and what ran."""
+    import re
+
+    m = re.search(r"profile: steps (\d+)-(\d+), (\d+) steps, wall ([\d.]+) ms, "
+                  r"trace (\S+)", stdout)
+    if m is None:
+        raise AssertionError("the trainer printed no profile line")
+    steps, wall_ms, path = int(m.group(3)), float(m.group(4)), Path(m.group(5))
+    if not path.is_file():
+        raise AssertionError(f"no trace at {path}")
+    events = json.loads(path.read_text())["traceEvents"]
+    spans, kernels = [], 0
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            spans.append((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0))))
+            kernels += e.get("cat") == "kernel"
+    busy_us, end = 0.0, -1e300
+    for a, b in sorted(spans):
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    return dict(trace=str(path.relative_to(ROOT)), trace_bytes=path.stat().st_size,
+                steps=steps, wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+                device_busy_share=(busy_us / 1e3) / wall_ms if spans else None,
+                kernel_launches_per_step=kernels / steps,
+                note=None if spans else "the trace holds no device events: "
+                                        "busy share not measured")
+
+
+def run_files_trainer(torch, dw, matcher, argv, phase: str, steps: int,
+                      dw_per_step: int) -> tuple[str, dict, dict]:
+    """Run the trainer in-process with the kernel counts set to 0 just
+    before and read just after; hold the launches a step (the MobileNet
+    configs' 9 + 9 depthwise forward and dx, 9 dk; one matcher launch) and
+    finite metrics → (stdout, the log, the launches)."""
+    from bdd100k_tpu_torch import train as train_mod
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dw.LAUNCHES.update(depthwise3x3_s1=0, depthwise3x3_s1_fgrad=0)
+    matcher.LAUNCHES["encode_targets"] = 0
+    out = run_trainer(train_mod, argv, RUNS / f"{phase}_stdout.txt")
+    launches = dict(depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"],
+                    depthwise3x3_s1_fgrad=dw.LAUNCHES["depthwise3x3_s1_fgrad"],
+                    encode_targets=matcher.LAUNCHES["encode_targets"])
+    per_step = {k: v / steps for k, v in launches.items()}
+    if per_step != dict(depthwise3x3_s1=2 * dw_per_step,
+                        depthwise3x3_s1_fgrad=dw_per_step, encode_targets=1):
+        raise AssertionError(f"{phase} launches per step {per_step}")
+    if f"done at step {steps}" not in out:
+        raise AssertionError(f"the {phase} run did not end at step {steps}")
+    run_dir = Path(argv[argv.index("--ckpt_dir") + 1])
+    log = read_log(run_dir / "train.jsonl")
+    if sorted(log) != list(range(1, steps + 1)) or not all(
+            np.isfinite(v) for r in log.values() for v in r.values()):
+        raise AssertionError(f"{phase}: missing or non-finite metrics")
+    return out, log, launches
+
+
+def step_stats(log: dict, batch: int, skip: set[int]) -> dict:
+    """Host-clock step times between consecutive logged steps from
+    TRAIN_WARMUP on, leaving out the steps in `skip` (a profiled window)."""
+    steps = sorted(log)
+    ms = [(log[b]["t"] - log[a]["t"]) * 1e3 for a, b in zip(steps, steps[1:])
+          if a >= TRAIN_WARMUP - 1 and b not in skip]
+    return dict(timed_steps=len(ms), p10_ms=float(np.percentile(ms, 10)),
+                p50_ms=float(np.percentile(ms, 50)), p90_ms=float(np.percentile(ms, 90)),
+                imgs_per_s=batch * len(ms) / (sum(ms) / 1e3))
+
+
+def loader_rate(decode_size: int | None, wire: str, nproc: int) -> float:
+    """The train loader alone, on the host: imgs/s of LOADER_BATCHES
+    shuffled batches of TRAIN_BATCH from the 64 JPEGs."""
+    from bdd100k_tpu_torch.data.pipeline import DetectionDataset, make_loader
+
+    ds = DetectionDataset.from_bdd100k(SYNTH_DIR / "labels" / "val.json",
+                                       SYNTH_DIR / "images" / "val",
+                                       decode_size=decode_size)
+    loader = make_loader(ds, TRAIN_BATCH, seed=0, num_workers=nproc, wire_format=wire)
+    next(loader)  # the pool's start
+    t0 = time.perf_counter()
+    for _ in range(LOADER_BATCHES):
+        next(loader)
+    rate = LOADER_BATCHES * TRAIN_BATCH / (time.perf_counter() - t0)
+    loader.close()
+    return rate
+
+
+def phase_train_files(torch, dw, matcher, nproc: int) -> dict:
+    """Training from JPEG files, the slice's main path: `python -m
+    bdd100k_tpu_torch.train` for SSD300 at full width and B=32 on the 64
+    committed JPEGs at --decode_size 512 on the yuv420 wire (--wire auto),
+    seeded from the committed SSD300 artifact's backbone, with an EMA
+    shadow and a torch.profiler window. Holds the printed wire, the seeded
+    backbone (an in-process `seed_backbone` of the same state against the
+    artifact's tensors), finite losses, the trace and the launches."""
+    import shutil
+
+    from bdd100k_tpu_torch import train as train_mod
+    from bdd100k_tpu_torch.configs import TrainConfig, get_config
+    from bdd100k_tpu_torch.models.detector import build_detector
+    from bdd100k_tpu_torch.parallel import train_step
+    from bdd100k_tpu_torch.utils.weights import load_detector_npz
+
+    run_dir = RUNS / "train_files"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = files_argv(CONFIG, TRAIN_BATCH, FILES_STEPS, run_dir, FILES_DECODE, nproc,
+                      "--pretrained_backbone", str(ARTIFACT.relative_to(ROOT)),
+                      "--ema_decay", str(TRAIN_EMA_DECAY),
+                      "--profile_steps", ",".join(map(str, FILES_PROFILE)))
+    t0 = time.perf_counter()
+    out, log, launches = run_files_trainer(torch, dw, matcher, argv, "train_files",
+                                           FILES_STEPS, dw_layers(CONFIG))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if "wire format: yuv420" not in out:
+        raise AssertionError("train_files did not run on the yuv420 wire")
+    if "seeded mobilenet backbone from" not in out:
+        raise AssertionError("train_files did not seed its backbone")
+    # the same seeding in-process, held to the artifact's tensors
+    cfg = get_config(CONFIG)
+    bundle = build_detector(cfg, device="cuda")
+    state = train_step.create_train_state(bundle, TrainConfig(ema_decay=TRAIN_EMA_DECAY))
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        seeded = train_mod.seed_backbone(state, cfg, str(ARTIFACT))
+    want, _ = load_detector_npz(ARTIFACT)
+    got = bundle.model.state_dict()
+    bb = [k for k in want if k.startswith("backbone.")
+          and not k.endswith("num_batches_tracked")]
+    differ = [k for k in bb if not torch.equal(got[k].cpu(), want[k])]
+    ema_off = sum(not torch.equal(e, p) for e, p in
+                  zip(state.ema_params, bundle.model.parameters()))
+    if differ or seeded != len(bb) or ema_off:
+        raise AssertionError(f"seeded backbone: {len(differ)} of {len(bb)} tensors "
+                             f"differ from the artifact, {seeded} written, "
+                             f"{ema_off} EMA tensors off the seeded weights")
+    busy = trace_busy(out)
+    skip = set(range(FILES_PROFILE[0] + 1, FILES_PROFILE[1] + 2))
+    stats = step_stats(log, TRAIN_BATCH, skip)
+    decode = loader_rate(FILES_DECODE, "yuv420", nproc)
+    per_step = {k: v / FILES_STEPS for k, v in launches.items()}
+    emit("train_files", command="python -m bdd100k_tpu_torch.train " + " ".join(argv),
+         config=CONFIG, batch=TRAIN_BATCH, steps=FILES_STEPS, wire="yuv420",
+         decode_size=FILES_DECODE, step_time=stats, profiled_steps_left_out=sorted(skip),
+         loss_at={s: log[s]["loss"] for s in (1, 10, 20, FILES_STEPS)},
+         seeded_backbone_tensors=seeded, seeded_equal_artifact=True,
+         ema_reanchored=True, profile=busy, launches=launches,
+         launches_per_step=per_step, loader_decode_imgs_per_s=decode,
+         decode_workers=nproc, peak_mem_gb=peak, wall_s=wall)
+    return dict(launches=launches, step_time=stats, busy=busy, run_dir=run_dir,
+                decode_imgs_per_s=decode)
+
+
+def phase_train_files_full(torch, dw, matcher, nproc: int) -> dict:
+    """The same trainer at --decode_size 0: full-resolution decodes of the
+    720p JPEGs on `nproc` threads, the rgb wire, the augment's crop at
+    native resolution; a profile window for the card's busy share."""
+    import shutil
+
+    run_dir = RUNS / "train_files_full"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = files_argv(CONFIG, TRAIN_BATCH, FILES_FULL_STEPS, run_dir, 0, nproc,
+                      "--profile_steps", ",".join(map(str, FILES_FULL_PROFILE)))
+    out, log, launches = run_files_trainer(torch, dw, matcher, argv,
+                                           "train_files_full", FILES_FULL_STEPS,
+                                           dw_layers(CONFIG))
+    if "wire format: rgb" not in out:
+        raise AssertionError("train_files_full did not run on the rgb wire")
+    busy = trace_busy(out)
+    window = busy["steps"] * TRAIN_BATCH / (busy["wall_ms"] / 1e3)
+    free = [(log[b]["t"] - log[b - 1]["t"]) * 1e3 for b in range(2, FILES_FULL_PROFILE[0] + 1)]
+    decode = loader_rate(None, "rgb", nproc)
+    emit("train_files_full", command="python -m bdd100k_tpu_torch.train " + " ".join(argv),
+         config=CONFIG, batch=TRAIN_BATCH, steps=FILES_FULL_STEPS, wire="rgb",
+         decode_size=0, profile=busy, imgs_per_s_profiled_window=window,
+         step_ms_before_profile=free,
+         imgs_per_s_before_profile=TRAIN_BATCH * len(free) / (sum(free) / 1e3),
+         loader_decode_imgs_per_s=decode, decode_workers=nproc, launches=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return dict(launches=launches, busy=busy, decode_imgs_per_s=decode,
+                imgs_per_s=window)
+
+
+def phase_vgg_pretrained(torch, dw, matcher, nproc: int) -> dict:
+    """ssd_vgg16_512 at B=32 from the same files for VGG_PRE_STEPS steps,
+    seeded from a torchvision-layout vgg16 `.pth` this phase writes from
+    seeded random tensors (nothing is downloaded); the seeded conv weights
+    held equal to the file's."""
+    import contextlib
+    import io
+    import shutil
+
+    from bdd100k_tpu_torch import train as train_mod
+    from bdd100k_tpu_torch.configs import TrainConfig, get_config
+    from bdd100k_tpu_torch.models.detector import build_detector
+    from bdd100k_tpu_torch.parallel import train_step
+
+    run_dir = RUNS / "vgg_pretrained"
+    shutil.rmtree(run_dir, ignore_errors=True)
+    run_dir.mkdir(parents=True)
+    rng = np.random.RandomState(0)
+    sd = {}
+    for i, cin, cout in TV_VGG16:
+        sd[f"features.{i}.weight"] = torch.from_numpy(
+            (rng.randn(cout, cin, 3, 3) * np.sqrt(2.0 / (9 * cin))).astype(np.float32))
+        sd[f"features.{i}.bias"] = torch.from_numpy(rng.randn(cout).astype(np.float32) * 0.01)
+    pth = run_dir / "vgg16_torchvision_layout.pth"
+    torch.save(sd, pth)
+    argv = files_argv(VGG_CONFIG, VGG_TRAIN_BATCH, VGG_PRE_STEPS, run_dir / "run",
+                      VGG_SIZE, nproc, "--pretrained_backbone", str(pth))
+    out, log, launches = run_files_trainer(torch, dw, matcher, argv, "vgg_pretrained",
+                                           VGG_PRE_STEPS, 0)
+    if "seeded vgg16 backbone from" not in out or "(26 tensors)" not in out:
+        raise AssertionError("vgg_pretrained did not seed its 13 convs")
+    cfg = get_config(VGG_CONFIG)
+    bundle = build_detector(cfg, device="cuda")
+    state = train_step.create_train_state(bundle, TrainConfig())
+    with contextlib.redirect_stdout(io.StringIO()):
+        train_mod.seed_backbone(state, cfg, str(pth))
+    got = bundle.model.state_dict()
+    differ = [n for (i, _, _), n in zip(TV_VGG16, TV_VGG16_NAMES)
+              if not (torch.equal(got[f"backbone.{n}.weight"].cpu(), sd[f"features.{i}.weight"])
+                      and torch.equal(got[f"backbone.{n}.bias"].cpu(), sd[f"features.{i}.bias"]))]
+    if differ:
+        raise AssertionError(f"vgg_pretrained: seeded convs differ from the file: {differ}")
+    times = [(log[b]["t"] - log[b - 1]["t"]) * 1e3 for b in range(2, VGG_PRE_STEPS + 1)]
+    emit("vgg_pretrained", command="python -m bdd100k_tpu_torch.train " + " ".join(argv),
+         config=VGG_CONFIG, batch=VGG_TRAIN_BATCH, steps=VGG_PRE_STEPS,
+         seeded_convs_equal_file=len(TV_VGG16), step_ms=times,
+         loss_at={s: log[s]["loss"] for s in (1, VGG_PRE_STEPS)}, launches=launches,
+         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return dict(launches=launches)
+
+
+def phase_export_weights(torch, nms, dw, files: dict) -> dict:
+    """`python -m bdd100k_tpu_torch.scripts.export_weights --ema` on
+    train_files' run: the artifact's params equal the checkpoint's EMA
+    shadow cast to fp16, its statistics the checkpoint's, meta source
+    "ema"; then `python -m bdd100k_tpu_torch.evaluate` of that artifact
+    with --ema in f32 over the 64 JPEGs (NMS and the eval path on a
+    port-trained artifact): a finite mAP."""
+    import os
+
+    from bdd100k_tpu_torch import evaluate
+    from bdd100k_tpu_torch.scripts import export_weights
+    from bdd100k_tpu_torch.utils.weights import flax_from_state_dict, read_detector_npz
+
+    run_dir = files["run_dir"]
+    out = RUNS / "train_files_ema.npz"
+    meta, _ = run_quietly(export_weights.main,
+                          ["--ckpt_dir", str(run_dir), "--config", CONFIG,
+                           "--out", str(out), "--ema"], RUNS / "export_stdout.txt")
+    payload = torch.load(run_dir / f"ckpt_{FILES_STEPS}.pt", map_location="cpu",
+                         weights_only=True)
+    sd = dict(payload["model"])
+    from bdd100k_tpu_torch.configs import get_config
+    from bdd100k_tpu_torch.models.detector import build_detector
+
+    names = [k for k, _ in build_detector(get_config(CONFIG),
+                                          device="cpu").model.named_parameters()]
+    sd.update(zip(names, payload["ema"], strict=True))
+    want_p, want_s = flax_from_state_dict(sd)
+    params, stats, fmeta = read_detector_npz(out)
+    bad = [k for k in want_p if params[k].dtype != np.float16
+           or not np.array_equal(params[k], want_p[k].astype(np.float16))]
+    bad += [k for k in want_s if not np.array_equal(stats[k], want_s[k])]
+    if bad or sorted(params) != sorted(want_p) or fmeta.get("source") != "ema" \
+            or fmeta.get("step") != FILES_STEPS:
+        raise AssertionError(f"export: {len(bad)} tensors differ from the EMA "
+                             f"shadow, meta {fmeta}")
+    argv = ["--config", CONFIG, "--ckpt_dir", os.path.relpath(out), "--ema",
+            "--synthetic", str(EVAL_SCENES), "--synthetic_dir", os.path.relpath(SYNTH_DIR),
+            "--batch_size", str(EVAL_BATCH), "--dtype", "float32"]
+    torch.cuda.synchronize()
+    nms.LAUNCHES["greedy_suppress"] = 0
+    dw.LAUNCHES["depthwise3x3_s1"] = 0
+    result, stdout = run_quietly(evaluate.main, argv, RUNS / "export_eval_stdout.txt")
+    launches = dict(greedy_suppress=nms.LAUNCHES["greedy_suppress"],
+                    depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"])
+    batches = -(-EVAL_SCENES // EVAL_BATCH)
+    if launches != dict(greedy_suppress=batches, depthwise3x3_s1=9 * batches):
+        raise AssertionError(f"export eval launches {launches}")
+    if f"restored step {FILES_STEPS} (EMA weights)" not in stdout or \
+            not np.isfinite(result["mAP"]):
+        raise AssertionError(f"export eval: {result['mAP']}")
+    emit("export_weights",
+         command="python -m bdd100k_tpu_torch.scripts.export_weights "
+                 f"--ckpt_dir {run_dir.relative_to(ROOT)} --config {CONFIG} "
+                 f"--out {out.relative_to(ROOT)} --ema",
+         meta=meta, artifact_bytes=out.stat().st_size, tensors=len(params) + len(stats),
+         equal_ema_fp16=True, eval_command="python -m bdd100k_tpu_torch.evaluate "
+         + " ".join(argv), eval_map50=result["mAP"],
+         eval_images_per_sec=result["images_per_sec"], launches=launches)
+    return dict(launches=launches, map50=result["mAP"])
+
+
+def sha256(a: np.ndarray) -> str:
+    import hashlib
+
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()
+
+
+def phase_decode_progressive(nproc: int) -> None:
+    """The committed progressive JPEGs (4:2:0, 4:4:4, gray, restart
+    markers) through the port's decodes: the pool at 300 rgb, 300 yuv420
+    and 512, and `decode_full` at 1/1, each sha256 equal to the
+    reference's decode (its native pool; PIL at 1/1) in the fixture."""
+    from bdd100k_tpu_torch.data.native_decode import NativeDecoder, decode_full
+
+    want = json.loads((REPAIRS / "ref_sha256.json").read_text())["decode_progressive"]
+    dec = NativeDecoder(nproc)
+    checked, bad = 0, []
+    try:
+        for name, rec in want.items():
+            jpeg = (REPAIRS / f"{name}.jpg").read_bytes()
+            got = {str(s): sha256(dec.decode_batch([jpeg], s)[0]) for s in (300, 512)}
+            if "300_yuv420" in rec:
+                y, uv = dec.decode_batch_yuv420([jpeg], 300)
+                got["300_yuv420"] = [sha256(y[0]), sha256(uv[0])]
+            got["full"] = sha256(decode_full(jpeg))
+            checked += len(got)
+            bad += [(name, k) for k in rec if got.get(k) != rec[k]]
+        jpegs = [(REPAIRS / f"{n}.jpg").read_bytes() for n in want] * 8
+        t0 = time.perf_counter()
+        dec.decode_batch(jpegs, 300)
+        rate = len(jpegs) / (time.perf_counter() - t0)
+    finally:
+        dec.close()
+    emit("decode_progressive", jpegs=len(want), decodes_checked=checked,
+         sha256_match_reference=f"{checked - len(bad)}/{checked}", mismatches=bad,
+         pool_300_imgs_per_s=rate, workers=nproc)
+    if bad:
+        raise AssertionError(f"progressive decodes differ from the reference's: {bad}")
+
+
+def phase_resize_bicubic() -> None:
+    """The committed non-720p JPEGs (1920×1080, 640×480, 1280×800, and a
+    640×360 upscale) through `DetectionDataset.decode_full` (the
+    full-resolution decode plus PIL's bicubic resize to 720×1280): each
+    sha256 equal to the reference's PIL route in the fixture."""
+    from bdd100k_tpu_torch.data.pipeline import DetectionDataset
+
+    want = json.loads((REPAIRS / "ref_sha256.json").read_text())["resize_bicubic"]
+    ds = DetectionDataset([], REPAIRS)
+    rows = {}
+    for name, digest in sorted(want.items()):
+        jpeg = (REPAIRS / name).read_bytes()
+        t0 = time.perf_counter()
+        image = ds.decode_full(jpeg)
+        rows[name] = dict(shape=list(image.shape), ms=(time.perf_counter() - t0) * 1e3,
+                          equal=sha256(image) == digest)
+    emit("resize_bicubic", frames=rows,
+         sha256_match_reference=f"{sum(r['equal'] for r in rows.values())}/{len(rows)}")
+    if not all(r["equal"] for r in rows.values()):
+        raise AssertionError(f"bicubic resizes differ from PIL's: {rows}")
+
+
+def run_files_phases(torch, nms, dw, matcher, nproc: int) -> dict:
+    """Slice 8's phases: training from JPEG files (yuv420 at 512 and full
+    resolution), VGG16-SSD512 from a torchvision-layout backbone, the
+    exporter and an eval of its artifact, and the decode repairs."""
+    files = phase_train_files(torch, dw, matcher, nproc)
+    full = phase_train_files_full(torch, dw, matcher, nproc)
+    vgg = phase_vgg_pretrained(torch, dw, matcher, nproc)
+    export = phase_export_weights(torch, nms, dw, files)
+    phase_decode_progressive(nproc)
+    phase_resize_bicubic()
+    return dict(files=files, full=full, vgg=vgg, export=export)
+
+
 def main() -> int:
     import torch
 
@@ -2280,12 +2701,21 @@ def main() -> int:
     cli = phase_infer_cli()
     full_res_rate = phase_full_res_decode(nproc)
 
+    # training from JPEG files (slice 8): SSD300 on the yuv420 wire from a
+    # pretrained backbone and at full resolution, VGG16-SSD512 from a
+    # torchvision-layout backbone, the exporter and an eval of its
+    # artifact, then the progressive decode and the bicubic resize
+    files = run_files_phases(torch, nms, dw, matcher, nproc)
+
     # the kernel table; launches are those of the main paths: SSD300
     # serving 512 requests, eval 2 batches of 32, 40 train steps; YOLO-384
     # serving 512 requests, eval 2 batches of 32 for each of the two
     # artifacts, 30 train steps at B=64; VGG16-SSD512 serving 4 modes ×
     # (256 b1 + 16 b32 requests), eval 2 batches of 32, 10 train steps
     tl, el = train["launches"], ev["launches"]
+    fl = {k: sum(files[p]["launches"].get(k, 0) for p in files)
+          for k in ("depthwise3x3_s1", "depthwise3x3_s1_fgrad", "encode_targets",
+                    "greedy_suppress")}
     vsl, vel = vgg["serve"]["launches"], vgg["eval_bf16"]["launches"]
     vtl = vgg["train"]["launches"]
     ysl, ytl = yolo["serve_launches"], yolo["train"]["launches"]
@@ -2303,7 +2733,8 @@ def main() -> int:
              replaces="bdd100k_tpu/ops/pallas_nms.py:124",
              launches=(launches["greedy_suppress"] + el["greedy_suppress"]
                        + ysl["greedy_suppress"] + yel["greedy_suppress"]
-                       + vsl["greedy_suppress"] + vel["greedy_suppress"]),
+                       + vsl["greedy_suppress"] + vel["greedy_suppress"]
+                       + fl["greedy_suppress"]),
              max_abs_err=nms_t["max_abs_err"],
              ms=nms_t[100]["ms"], plain_ms=nms_t[100]["plain_ms"],
              bound_ms=nms_t[100]["bound_ms"], bound_by=nms_t[100]["bound_by"],
@@ -2320,7 +2751,8 @@ def main() -> int:
              replaces="bdd100k_tpu/ops/pallas_depthwise.py:219",
              launches=(launches["depthwise3x3_s1"] + el["depthwise3x3_s1"]
                        + tl["depthwise3x3_s1"] + ysl["depthwise3x3_s1"]
-                       + yel["depthwise3x3_s1"] + ytl["depthwise3x3_s1"]),
+                       + yel["depthwise3x3_s1"] + ytl["depthwise3x3_s1"]
+                       + fl["depthwise3x3_s1"]),
              max_abs_err=max(dw_t["max_abs_err"], ydw["max_abs_err"]), ms=dw_t["ms"],
              plain_ms=dw_t["plain_ms"], bound_ms=dw_t["bound_ms"],
              bound_by="bytes", library_ms=dw_t["library_ms"],
@@ -2330,7 +2762,8 @@ def main() -> int:
         dict(name="depthwise3x3_s1_fgrad", route="cuda",
              source="bdd100k_tpu_torch/csrc/depthwise.cu",
              replaces="bdd100k_tpu/ops/pallas_depthwise.py:242",
-             launches=tl["depthwise3x3_s1_fgrad"] + ytl["depthwise3x3_s1_fgrad"],
+             launches=(tl["depthwise3x3_s1_fgrad"] + ytl["depthwise3x3_s1_fgrad"]
+                       + fl["depthwise3x3_s1_fgrad"]),
              max_abs_err=max(bwd_t["max_abs_err"], ydw["dk_max_abs_err"]),
              ms=bwd_t["dk"]["ms"],
              plain_ms=bwd_t["dk"]["plain_ms"], bound_ms=bwd_t["dk"]["bound_ms"],
@@ -2340,7 +2773,7 @@ def main() -> int:
              source="bdd100k_tpu_torch/csrc/matcher.cu",
              replaces="bdd100k_tpu/ops/pallas_matcher.py:202",
              launches=(tl["encode_targets"] + ytl["encode_targets"]
-                       + vtl["encode_targets"]),
+                       + vtl["encode_targets"] + fl["encode_targets"]),
              max_abs_err=max(match_t["max_abs_err"], ym["max_abs_err"],
                              vgg["matcher"]["max_abs_err"]),
              ms=match_t["ms"], plain_ms=match_t["plain_ms"],
@@ -2367,6 +2800,10 @@ def main() -> int:
          cli_bf16_imgs_per_s={c: {w: r[f"bf16_{w}"]["imgs_per_s_after_first_batch"]
                                   for w in ("yuv420", "rgb")} for c, r in cli.items()},
          full_res_decode_imgs_per_s=full_res_rate,
+         train_files_step=files["files"]["step_time"],
+         train_files_busy_share=files["files"]["busy"]["device_busy_share"],
+         train_files_full_busy_share=files["full"]["busy"]["device_busy_share"],
+         export_eval_map50=files["export"]["map50"],
          note="kernel ms (SSD300 shapes): NMS at B=8 C=10 K=100 (one launch a "
               "call); depthwise forward summed over the 9 stride-1 layers at B=8 "
               "bf16, filter gradient at B=32 bf16; matcher at B=32 M=100 A=8732 "
@@ -2377,7 +2814,10 @@ def main() -> int:
               "batches + 40 train steps, YOLO-384 serving 512 requests + eval 2 "
               "batches for each of 2 artifacts + 30 train steps at B=64, "
               "VGG16-SSD512 serving 4 modes x (256 b1 + 16 b32 requests) + "
-              "eval 2 batches + 10 train steps at B=32")
+              "eval 2 batches + 10 train steps at B=32; training from JPEG "
+              "files: SSD300 30 steps at 512 yuv420 + 8 at full resolution, "
+              "VGG16-SSD512 5 steps, and the exported artifact's eval 2 "
+              "batches")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
