@@ -1,7 +1,7 @@
-"""Resizes of uint8 frames on the host, in numpy (the card's machine has
-neither cv2 nor PIL): `resize_linear`, the bytes of `cv2.resize(frame,
-(w, h), interpolation=cv2.INTER_LINEAR)`, and `resize_bicubic`, those of
-PIL's `Image.resize((w, h))` (below).
+"""Resizes of uint8 frames on the host (the card's machine has neither
+cv2 nor PIL): `resize_linear`, in numpy, the bytes of `cv2.resize(frame,
+(w, h), interpolation=cv2.INTER_LINEAR)`, and `resize_bicubic`, in C,
+those of PIL's `Image.resize((w, h))` (below).
 
 The reference's `Predictor` resizes a frame on the host with cv2 when cv2
 is present (bdd100k_tpu/infer.py:154-171); this module gives those bytes:
@@ -26,6 +26,8 @@ not 720×1280 with PIL's default filter (bdd100k_tpu/data/pipeline.py:
 from __future__ import annotations
 
 import numpy as np
+
+from bdd100k_tpu_torch.utils.host_build import decode_pool_library
 
 COEF_SCALE = 2048  # cv2's INTER_RESIZE_COEF_SCALE (11 bits)
 
@@ -92,89 +94,27 @@ def resize_linear(frames: np.ndarray, height: int, width: int) -> np.ndarray:
     return np.clip(v, 0, 255).astype(np.uint8)
 
 
-# Pillow's fixed-point resample (libImaging/Resample.c, 8 bits a channel)
-PRECISION_BITS = 32 - 8 - 2
-BICUBIC_SUPPORT = 2.0
-
-
-def _bicubic(x: np.ndarray) -> np.ndarray:
-    """Pillow's bicubic_filter, a = −0.5, in float64."""
-    a = -0.5
-    x = np.abs(x)
-    near = ((a + 2.0) * x - (a + 3.0)) * x * x + 1
-    far = (((x - 5) * x + 8) * x - 4) * a
-    return np.where(x < 1.0, near, np.where(x < 2.0, far, 0.0))
-
-
-def _bicubic_coeffs(in_size: int, out_size: int):
-    """precompute_coeffs + normalize_coeffs_8bpc for the box (0, in_size)
-    → (xmin (out,), int32 coefficients (out, ksize)), a coefficient past
-    a row's xmax being 0."""
-    scale = filterscale = in_size / out_size
-    if filterscale < 1.0:
-        filterscale = 1.0
-    support = BICUBIC_SUPPORT * filterscale
-    ksize = int(np.ceil(support)) * 2 + 1
-    center = (np.arange(out_size, dtype=np.float64) + 0.5) * scale
-    # C's (int) cast truncates toward zero
-    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
-    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64),
-                      in_size) - xmin
-    x = np.arange(ksize)
-    live = x[None, :] < xmax[:, None]
-    w = np.where(live, _bicubic((x[None, :] + xmin[:, None] - center[:, None]
-                                 + 0.5) * (1.0 / filterscale)), 0.0)
-    # the row's weights summed left to right, as the C loop does
-    ww = np.zeros(out_size)
-    for j in range(ksize):
-        ww = ww + w[:, j]
-    w = np.where(ww[:, None] != 0.0, w / np.where(ww == 0.0, 1.0, ww)[:, None], w)
-    one = float(1 << PRECISION_BITS)
-    k = np.where(w < 0, np.trunc(-0.5 + w * one), np.trunc(0.5 + w * one))
-    return xmin, xmax, k.astype(np.int64)
-
-
-def _resample_axis(src: np.ndarray, axis: int, xmin, k) -> np.ndarray:
-    """One pass along `axis` of an integer array: Σ src[xmin + j]·k[j]
-    from the rounding half, shifted down and clipped to uint8."""
-    n = src.shape[axis]
-    acc = np.int64(1 << (PRECISION_BITS - 1))
-    out = None
-    for j in range(k.shape[1]):
-        idx = np.minimum(xmin + j, n - 1)  # k is 0 past a row's xmax
-        shape = [1] * src.ndim
-        shape[axis] = -1
-        term = np.take(src, idx, axis=axis) * k[:, j].reshape(shape)
-        out = term + acc if out is None else out + term
-    return np.clip(out >> PRECISION_BITS, 0, 255)
-
-
 def resize_bicubic(frames: np.ndarray, height: int, width: int) -> np.ndarray:
     """(N, H, W, C) uint8 → (N, height, width, C) uint8, the bytes of
     PIL's `Image.resize((width, height))` (BICUBIC, its default) on each
-    frame: the bicubic filter with a = −0.5, its support scaled by the
-    downscale factor, coefficients normalised and put in fixed point with
-    22 fractional bits, a horizontal pass into a uint8 temporary over the
-    source rows the vertical pass reads, then the vertical pass; each
-    rounds half up and clips to 0..255. Exact in int64."""
+    frame, in C (`csrc/resample.cc`, Pillow's libImaging/Resample.c): the
+    bicubic filter with a = −0.5, its support scaled by the downscale
+    factor, weights in fixed point with 22 fractional bits, a horizontal
+    pass into a uint8 temporary over the source rows the vertical pass
+    reads, then the vertical pass; each rounds half up and clips to
+    0..255."""
     frames = np.asarray(frames)
     if frames.dtype != np.uint8 or frames.ndim != 4:
         raise ValueError(f"frames must be (N, H, W, C) uint8, got "
                          f"{frames.dtype} {frames.shape}")
     if height < 1 or width < 1:
         raise ValueError(f"bad target size {height}×{width}")
-    _, h, w, _ = frames.shape
+    n, h, w, c = frames.shape
     if (h, w) == (height, width):
         return frames.copy()
-    ymin, ymax, ky = _bicubic_coeffs(h, height)
-    out = frames.astype(np.int64)
-    if w != width:
-        # Pillow's temporary holds only the rows from the first to the last
-        # one the vertical pass reads
-        first, last = int(ymin[0]), int(ymin[-1] + ymax[-1])
-        xmin, _, kx = _bicubic_coeffs(w, width)
-        out = _resample_axis(out[:, first:last], 2, xmin, kx)
-        ymin = ymin - first
-    if h != height:
-        out = _resample_axis(out, 1, ymin, ky)
-    return out.astype(np.uint8)
+    frames = np.ascontiguousarray(frames)
+    out = np.empty((n, height, width, c), np.uint8)
+    if decode_pool_library().rs_resize_bicubic(
+            frames.ctypes.data, n, h, w, c, height, width, out.ctypes.data):
+        raise ValueError(f"cannot resize {frames.shape} to {height}×{width}")
+    return out

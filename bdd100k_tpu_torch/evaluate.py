@@ -43,7 +43,7 @@ from bdd100k_tpu_torch.models.detector import build_detector
 from bdd100k_tpu_torch.ops.map_metric import DetectionEvaluator
 from bdd100k_tpu_torch.ops.nms import Detections
 from bdd100k_tpu_torch.parallel.train_step import make_eval_step
-from bdd100k_tpu_torch.utils.device import resolve_device
+from bdd100k_tpu_torch.utils.device import resolve_device, strict_f32
 from bdd100k_tpu_torch.utils.weights import restore_eval_weights
 
 
@@ -277,17 +277,15 @@ def main(argv=None) -> dict:
         det_cfg = dataclasses.replace(det_cfg, postprocess=dataclasses.replace(
             det_cfg.postprocess, per_class_topk=args.per_class_topk))
     dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
-    if args.dtype == "float32":  # f32 means f32: no TF32 in cuDNN or matmuls
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    bundle = build_detector(det_cfg, dtype=dtype, device=device)
-    if args.ckpt_dir:
-        step = restore_eval_weights(bundle.model, args.ckpt_dir, ema=args.ema,
-                                    expect_config=det_cfg.name)
-        print(f"restored step {step}" + (" (EMA weights)" if args.ema else ""))
-    # no augment at eval: decode straight to the model's input size
-    dataset = load_dataset(args, det_cfg.image_size)
-    result = run_eval(bundle, dataset, args)
+    with strict_f32(args.dtype == "float32"):
+        bundle = build_detector(det_cfg, dtype=dtype, device=device)
+        if args.ckpt_dir:
+            step = restore_eval_weights(bundle.model, args.ckpt_dir, ema=args.ema,
+                                        expect_config=det_cfg.name)
+            print(f"restored step {step}" + (" (EMA weights)" if args.ema else ""))
+        # no augment at eval: decode straight to the model's input size
+        dataset = load_dataset(args, det_cfg.image_size)
+        result = run_eval(bundle, dataset, args)
     ips = result.get("images_per_sec")
     print(f"\nmAP@{args.iou_threshold}: {result['mAP']:.4f}"
           + (f" ({ips:.1f} imgs/sec steady-state)" if ips else ""))

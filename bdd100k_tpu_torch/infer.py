@@ -56,7 +56,7 @@ from bdd100k_tpu_torch.data.pipeline import (
 from bdd100k_tpu_torch.evaluate import fetch_async
 from bdd100k_tpu_torch.models.detector import DetectorBundle, build_detector
 from bdd100k_tpu_torch.ops.nms import Detections
-from bdd100k_tpu_torch.utils.device import resolve_device
+from bdd100k_tpu_torch.utils.device import resolve_device, strict_f32
 from bdd100k_tpu_torch.utils.viz import draw_detections, write_png
 from bdd100k_tpu_torch.utils.weights import restore_eval_weights
 
@@ -453,17 +453,15 @@ def main(argv=None):
         raise SystemExit(f"--quant/--calib_images: {QUANT_LATER}")
     if args.video:
         raise SystemExit(VIDEO_NOT_PORTED)
-    if args.dtype == "float32":  # f32 means f32: no TF32 in cuDNN or matmuls
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
     if args.out_dir:
         Path(args.out_dir).mkdir(parents=True, exist_ok=True)
-    if args.image:
-        run_single(args)
-    elif args.image_dir:
-        run_dir(args)
-    else:
+    if not (args.image or args.image_dir):
         raise SystemExit("need one of --image / --image_dir")
+    with strict_f32(args.dtype == "float32"):
+        if args.image:
+            run_single(args)
+        else:
+            run_dir(args)
 
 
 if __name__ == "__main__":

@@ -11,7 +11,7 @@ BatchNorm statistics, meta {config, step, source}) is what
 reference's `load_into_state` too. The latest `ckpt_<step>.pt` of the run
 directory gives the params and BatchNorm statistics; with `--ema` its EMA
 shadow replaces the params (the run must have used `--ema_decay`). The
-export moves tensors from a file to a file and runs on the CPU.
+detector is built on the card unless `--device cpu` is given.
 """
 
 from __future__ import annotations
@@ -24,6 +24,7 @@ import torch
 
 from bdd100k_tpu_torch.configs import apply_yolo_priors, get_config
 from bdd100k_tpu_torch.models.detector import build_detector
+from bdd100k_tpu_torch.utils.device import resolve_device
 from bdd100k_tpu_torch.utils.weights import restore_eval_weights, save_detector_npz
 
 
@@ -39,12 +40,15 @@ def main(argv=None) -> dict:
                    help="export the EMA shadow (the run must have used "
                         "--ema_decay)")
     p.add_argument("--dtype", choices=("float16", "float32"), default="float16")
+    p.add_argument("--device", default="cuda",
+                   help="where the detector is built (cuda; cpu for tests)")
     args = p.parse_args(argv)
 
     det_cfg = get_config(args.config)
     if args.yolo_priors:
         det_cfg = apply_yolo_priors(det_cfg, args.yolo_priors)
-    bundle = build_detector(det_cfg, dtype=torch.float32, device="cpu")
+    bundle = build_detector(det_cfg, dtype=torch.float32,
+                            device=resolve_device(args.device))
     if not Path(args.ckpt_dir).is_dir():
         raise SystemExit(f"{args.ckpt_dir} is not a run directory")
     step = restore_eval_weights(bundle.model, args.ckpt_dir, ema=args.ema)

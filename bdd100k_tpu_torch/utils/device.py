@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -14,3 +16,17 @@ def resolve_device(device: str | torch.device) -> torch.device:
             "default; pass device='cpu' to run the plain versions on the CPU"
         )
     return device
+
+
+@contextlib.contextmanager
+def strict_f32(enabled: bool = True):
+    """f32 means f32: with `enabled`, TF32 is off in cuDNN and matmuls for
+    the block, and both flags are restored after it."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    if enabled:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved

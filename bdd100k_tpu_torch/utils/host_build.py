@@ -1,4 +1,5 @@
-"""Build and load the host JPEG decode pool.
+"""Build and load the host library: the JPEG decode pool and Pillow's
+bicubic resample.
 
 The pool is the reference's own C++ source, `native/decode_pool.cc`, shared
 by both packages and compiled here unchanged. It is linked against the
@@ -6,7 +7,9 @@ port's JPEG decoder `csrc/jpeg/jdecode.cc` (libjpeg's API subset, giving
 libjpeg-turbo's pixels bit for bit) rather than a system libjpeg, on every
 machine: the card's machine has no libjpeg, and one decoder everywhere
 keeps the pixels the same wherever the port runs. The same library holds
-`csrc/jpeg/jfull.cc`, the full-resolution decode of one JPEG.
+`csrc/jpeg/jfull.cc`, the full-resolution decode of one JPEG, and
+`csrc/resample.cc`, PIL's default `Image.resize` (floating point without
+fused multiply-adds, as Pillow's own build computes its weights).
 
 One g++ call builds the sources into `bdd100k_tpu_torch/_build/`, keyed by
 a hash of the sources, the header and the flags, at first use. A failed
@@ -28,9 +31,9 @@ from bdd100k_tpu_torch.utils.cuda_build import BUILD_DIR, CSRC
 
 ROOT = CSRC.parent.parent
 SOURCES = (ROOT / "native" / "decode_pool.cc", CSRC / "jpeg" / "jdecode.cc",
-           CSRC / "jpeg" / "jfull.cc")
+           CSRC / "jpeg" / "jfull.cc", CSRC / "resample.cc")
 HEADERS = (CSRC / "jpeg" / "jpeglib.h",)
-FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread",
+FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread", "-ffp-contract=off",
          "-I", str(CSRC / "jpeg")]
 
 # the C entry points of decode_pool.cc and their argument types
@@ -48,6 +51,8 @@ SIGNATURES = {
     "jd_image_size": ([ctypes.c_char_p, ctypes.c_long, _P, _P], ctypes.c_int),
     # jpeg, len (long), h, w, out
     "jd_decode_rgb": ([ctypes.c_char_p, ctypes.c_long, _I, _I, _P], ctypes.c_int),
+    # src, n, h, w, c, out_h, out_w, out (resample.cc)
+    "rs_resize_bicubic": ([_P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -59,6 +59,7 @@ from pathlib import Path
 
 import numpy as np
 
+T_IMPORT = time.perf_counter()
 ROOT = Path(__file__).resolve().parent
 ARTIFACT = ROOT / "artifacts" / "ssd_mobilenet_300_synth9k.npz"
 CONFIG = "ssd_mobilenet_300"
@@ -78,7 +79,10 @@ PHASE_LOG = ROOT / "chiprun_out" / "chip_smoke.jsonl"  # every phase line, whole
 
 
 def emit(phase: str, **fields) -> None:
-    line = json.dumps({"phase": phase, **fields})
+    """Print one phase's JSON line, with the script's seconds so far, and
+    append it to PHASE_LOG."""
+    line = json.dumps({"phase": phase, "at_s": time.perf_counter() - T_IMPORT,
+                       **fields})
     print(line, flush=True)
     with PHASE_LOG.open("a") as f:
         f.write(line + "\n")
@@ -1602,7 +1606,9 @@ def phase_train_profile(torch, frames, boxes, labels, config=CONFIG,
                         batch_size=TRAIN_BATCH, phase="train_profile") -> None:
     """Where a bf16 train step's device time goes: torch.profiler over 3
     steps (after 3 warm-up steps), kernel time summed by name and by the
-    layer that launched it, against the window's wall time."""
+    layer that launched it, against the window's wall time and against
+    the wall time of 3 steps just before it without the profiler (which
+    lengthens the steps it records)."""
     from torch.profiler import ProfilerActivity, profile
 
     from bdd100k_tpu_torch.configs import TrainConfig, get_config
@@ -1625,6 +1631,12 @@ def phase_train_profile(torch, frames, boxes, labels, config=CONFIG,
         step(state, gen, *batch)
     torch.cuda.synchronize()
     steps = 3
+    t0 = time.perf_counter()
+    for i in range(steps):
+        gen.manual_seed(5 + i)
+        step(state, gen, *batch)
+    torch.cuda.synchronize()
+    free_ms = (time.perf_counter() - t0) * 1e3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for i in range(steps):
@@ -1651,6 +1663,8 @@ def phase_train_profile(torch, frames, boxes, labels, config=CONFIG,
          wall_ms_per_step=wall_ms / steps,
          device_kernel_ms_per_step=busy / steps,
          device_busy_share=busy / wall_ms if wall_ms else None,
+         unprofiled_ms_per_step=free_ms / steps,
+         device_busy_share_of_unprofiled_step=busy / free_ms if kernels else None,
          kernel_launches_per_step=sum(v[1] for v in kernels.values()) / steps,
          ms_per_step_by_layer=buckets,
          top_kernels=[dict(name=n[:90], ms_per_step=v[0] / steps,
@@ -2243,7 +2257,9 @@ def files_argv(config: str, batch: int, steps: int, run_dir: Path,
 def trace_busy(stdout: str) -> dict:
     """The trainer's `--profile_steps` window: its wall time (the line it
     prints) and the card's busy time in the trace it wrote (the union of
-    kernel, memcpy and memset intervals) → busy share and what ran."""
+    kernel, memcpy and memset intervals) → busy share and what ran. The
+    profiler lengthens the steps it records, so the callers also divide
+    the busy time a step by an unprofiled step of the same run."""
     import re
 
     m = re.search(r"profile: steps (\d+)-(\d+), (\d+) steps, wall ([\d.]+) ms, "
@@ -2266,6 +2282,7 @@ def trace_busy(stdout: str) -> dict:
             end = b
     return dict(trace=str(path.relative_to(ROOT)), trace_bytes=path.stat().st_size,
                 steps=steps, wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+                device_busy_ms_per_step=busy_us / 1e3 / steps,
                 device_busy_share=(busy_us / 1e3) / wall_ms if spans else None,
                 kernel_launches_per_step=kernels / steps,
                 note=None if spans else "the trace holds no device events: "
@@ -2385,6 +2402,10 @@ def phase_train_files(torch, dw, matcher, nproc: int) -> dict:
     busy = trace_busy(out)
     skip = set(range(FILES_PROFILE[0] + 1, FILES_PROFILE[1] + 2))
     stats = step_stats(log, TRAIN_BATCH, skip)
+    busy["device_busy_share_of_unprofiled_p50"] = (
+        busy["device_busy_ms_per_step"] / stats["p50_ms"]
+        if busy["device_busy_share"] is not None else None)
+    busy["profiler_stretch"] = busy["wall_ms"] / busy["steps"] / stats["p50_ms"]
     decode = loader_rate(FILES_DECODE, "yuv420", nproc)
     per_step = {k: v / FILES_STEPS for k, v in launches.items()}
     emit("train_files", command="python -m bdd100k_tpu_torch.train " + " ".join(argv),
@@ -2417,6 +2438,11 @@ def phase_train_files_full(torch, dw, matcher, nproc: int) -> dict:
     busy = trace_busy(out)
     window = busy["steps"] * TRAIN_BATCH / (busy["wall_ms"] / 1e3)
     free = [(log[b]["t"] - log[b - 1]["t"]) * 1e3 for b in range(2, FILES_FULL_PROFILE[0] + 1)]
+    free_p50 = float(np.median(free))
+    busy["device_busy_share_of_unprofiled_p50"] = (
+        busy["device_busy_ms_per_step"] / free_p50
+        if busy["device_busy_share"] is not None else None)
+    busy["profiler_stretch"] = busy["wall_ms"] / busy["steps"] / free_p50
     decode = loader_rate(None, "rgb", nproc)
     emit("train_files_full", command="python -m bdd100k_tpu_torch.train " + " ".join(argv),
          config=CONFIG, batch=TRAIN_BATCH, steps=FILES_FULL_STEPS, wire="rgb",
@@ -2585,7 +2611,10 @@ def phase_resize_bicubic() -> None:
     """The committed non-720p JPEGs (1920×1080, 640×480, 1280×800, and a
     640×360 upscale) through `DetectionDataset.decode_full` (the
     full-resolution decode plus PIL's bicubic resize to 720×1280): each
-    sha256 equal to the reference's PIL route in the fixture."""
+    sha256 equal to the reference's PIL route in the fixture. Times the
+    whole call, and the decode and the resize of it apart."""
+    from bdd100k_tpu_torch.data.host_resize import resize_bicubic
+    from bdd100k_tpu_torch.data.native_decode import decode_full
     from bdd100k_tpu_torch.data.pipeline import DetectionDataset
 
     want = json.loads((REPAIRS / "ref_sha256.json").read_text())["resize_bicubic"]
@@ -2595,7 +2624,13 @@ def phase_resize_bicubic() -> None:
         jpeg = (REPAIRS / name).read_bytes()
         t0 = time.perf_counter()
         image = ds.decode_full(jpeg)
-        rows[name] = dict(shape=list(image.shape), ms=(time.perf_counter() - t0) * 1e3,
+        t1 = time.perf_counter()
+        full = decode_full(jpeg)
+        t2 = time.perf_counter()
+        resize_bicubic(full[None], 720, 1280)
+        t3 = time.perf_counter()
+        rows[name] = dict(shape=list(image.shape), ms=(t1 - t0) * 1e3,
+                          decode_ms=(t2 - t1) * 1e3, resize_ms=(t3 - t2) * 1e3,
                           equal=sha256(image) == digest)
     emit("resize_bicubic", frames=rows,
          sha256_match_reference=f"{sum(r['equal'] for r in rows.values())}/{len(rows)}")
@@ -2803,6 +2838,10 @@ def main() -> int:
          train_files_step=files["files"]["step_time"],
          train_files_busy_share=files["files"]["busy"]["device_busy_share"],
          train_files_full_busy_share=files["full"]["busy"]["device_busy_share"],
+         train_files_busy_share_of_unprofiled_p50=files["files"]["busy"][
+             "device_busy_share_of_unprofiled_p50"],
+         train_files_full_busy_share_of_unprofiled_p50=files["full"]["busy"][
+             "device_busy_share_of_unprofiled_p50"],
          export_eval_map50=files["export"]["map50"],
          note="kernel ms (SSD300 shapes): NMS at B=8 C=10 K=100 (one launch a "
               "call); depthwise forward summed over the 9 stride-1 layers at B=8 "

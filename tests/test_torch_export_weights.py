@@ -59,7 +59,7 @@ def run_dir(tmp_path_factory) -> Path:
 
 def _export(run_dir: Path, out: Path, ema: bool, dtype: str) -> dict:
     return export_weights.main(["--ckpt_dir", str(run_dir), "--config", "ssd_tiny_64",
-                                "--out", str(out), "--dtype", dtype,
+                                "--out", str(out), "--dtype", dtype, "--device", "cpu",
                                 *(["--ema"] if ema else [])])
 
 
@@ -157,6 +157,16 @@ def test_export_refuses_a_run_without_a_checkpoint_or_an_ema(run_dir, tmp_path):
         _export(plain, tmp_path / "b.npz", True, "float16")
 
 
+def test_exporter_needs_cuda_unless_asked_for_the_cpu(run_dir, tmp_path, monkeypatch):
+    """The exporter is an entry point: it builds the detector on the card
+    by default and raises without one; `--device cpu` is the tests' way."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        export_weights.main(["--ckpt_dir", str(run_dir), "--config", "ssd_tiny_64",
+                             "--out", str(tmp_path / "a.npz")])
+    assert not (tmp_path / "a.npz").exists()
+
+
 def test_evaluate_cli_reads_the_ema_export_in_f32(run_dir, tmp_path, capsys):
     """The exported artifact through `python -m bdd100k_tpu_torch.evaluate
     --ema --dtype float32`, as chip_smoke's export_weights phase runs it on
@@ -166,8 +176,12 @@ def test_evaluate_cli_reads_the_ema_export_in_f32(run_dir, tmp_path, capsys):
     out = tmp_path / "ema.npz"
     _export(run_dir, out, True, "float32")
     capsys.readouterr()
+    flags = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
     result = evaluate.main(["--config", "ssd_tiny_64", "--ckpt_dir", str(out), "--ema",
                             "--synthetic", "8", "--batch_size", "4",
                             "--dtype", "float32", "--device", "cpu"])
     assert "restored step 2 (EMA weights)" in capsys.readouterr().out
     assert result["num_images"] == 8 and np.isfinite(result["mAP"])
+    # f32 turns TF32 off for the eval only, and leaves the process as it was
+    assert (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32) == flags
