@@ -64,6 +64,11 @@ class DetectorConfig:
     yolo_grids: tuple[int, ...] = ()
     yolo_priors: tuple = ()
     postprocess: PostprocessConfig = PostprocessConfig()
+    # inference quantization of the dense convs (models/layers.py QuantConv):
+    # "none", "int8" (per-batch activation scales) or "int8_static"
+    # (calibrated, frozen scales; models/quant.py); the params are the
+    # same in every mode
+    quant: str = "none"
 
     @property
     def num_anchors(self) -> int:

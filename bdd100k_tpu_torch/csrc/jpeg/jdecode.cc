@@ -19,9 +19,19 @@
 //   * progressive scans (jdphuff.c): DC first and refine scans, AC first
 //     and refine scans with their end-of-band runs, decoded into the
 //     whole image's coefficients, which are IDCT'd once the input ends
-//     (jdcoefct.c's multi-scan mode). libjpeg's interblock smoothing of
-//     coefficients that are not yet fully refined (a file cut before its
-//     last scans) is not done.
+//     (jdcoefct.c's multi-scan mode);
+//   * libjpeg-turbo 2.1's interblock smoothing of a progressive file whose
+//     coefficients are not all fully refined (a file cut before its last
+//     scans): jdphuff.c's progression status, jdcoefct.c's coef_bits latch,
+//     and decompress_smooth_data's estimates of the nine lowest AC
+//     coefficients, and of the DC while no AC has arrived, from the 5x5
+//     window of DC values around each block;
+//   * a file whose data ends before its EOI marker decodes as libjpeg's
+//     memory source and decoder take it: past the end every read gives
+//     the bytes of a fake EOI marker, FF D9 (inside a marker segment too),
+//     a Huffman table is checked only when a scan uses it, the out-of-data
+//     flag survives a missing RSTn, and one warning (JWRN_JPEG_EOF) is
+//     counted in err->num_warnings, the only warning this decoder gives.
 // This software is based in part on the work of the Independent JPEG
 // Group.
 //
@@ -68,6 +78,7 @@ struct BitReader {
   int bits = 0;
   int unread_marker = 0;   // the marker that ended the segment, if any
   bool insufficient = false;
+  bool hit_end = false;    // the data ended: unread_marker is a fake EOI
 
   int next_byte() {
     // past the end, the source supplies a fake EOI, as jpeg_mem_src does
@@ -81,6 +92,7 @@ struct BitReader {
       int c = next_byte();
       if (c < 0) {
         unread_marker = 0xD9;
+        hit_end = true;
         break;
       }
       if (c == 0xFF) {
@@ -90,6 +102,7 @@ struct BitReader {
         } while (m == 0xFF);
         if (m < 0) {
           unread_marker = 0xD9;
+          hit_end = true;
           break;
         }
         if (m != 0) {
@@ -133,6 +146,11 @@ constexpr int kLookBits = 9;
 
 struct Huffman {
   bool defined = false;
+  // jpeg_make_d_derived_tbl's verdict, which libjpeg reaches when a scan
+  // first uses the table: a table never used may be garbage (a file cut
+  // inside its DHT segment reads fake EOI bytes into it)
+  bool valid = false;
+  bool dc_valid = false;  // every symbol ≤ 15, as a DC table needs
   uint8_t bits[17] = {};
   uint8_t vals[256] = {};
   int64_t maxcode[18] = {};
@@ -140,12 +158,14 @@ struct Huffman {
   // (code length << 8) | symbol for codes of <= kLookBits bits, else 0
   uint16_t look[1 << kLookBits] = {};
 
-  void build(bool dc) {
+  void build() {
+    defined = true;
+    valid = dc_valid = false;
     char size[257];
     int p = 0;
     for (int l = 1; l <= 16; ++l) {
       int n = bits[l];
-      if (p + n > 256) fail("bad Huffman table");
+      if (p + n > 256) return;
       while (n--) size[p++] = static_cast<char>(l);
     }
     size[p] = 0;
@@ -156,7 +176,7 @@ struct Huffman {
     p = 0;
     while (size[p]) {
       while (size[p] == si) code_of[p++] = code++;
-      if (code >= (1u << si)) fail("bad Huffman table");
+      if (code >= (1u << si)) return;
       code <<= 1;
       ++si;
     }
@@ -182,10 +202,8 @@ struct Huffman {
               static_cast<uint16_t>((l << 8) | vals[p]);
       }
     }
-    if (dc)
-      for (int i = 0; i < nsym; ++i)
-        if (vals[i] > 15) fail("bad Huffman table");
-    defined = true;
+    valid = true;
+    dc_valid = std::all_of(vals, vals + nsym, [](uint8_t v) { return v <= 15; });
   }
 
   int decode(BitReader& br) const {
@@ -467,6 +485,11 @@ struct Component {
   int bw = 0, bh = 0;            // width_in_blocks, height_in_blocks
   int bw_pad = 0, bh_pad = 0;    // padded to whole MCUs
   std::vector<int16_t> coef;     // bh_pad * bw_pad blocks of 64
+  // jdphuff.c's progression status a zigzag coefficient: the Al of the
+  // last scan that carried it (-1: none yet), and its value before the
+  // component's latest scan (libjpeg's second half of coef_bits)
+  int bits[64];
+  int prev_bits[64];
   int ssize = 8;                 // DCT_scaled_size
   int pw = 0, ph = 0;            // IDCT'd plane: bw * ssize, bh * ssize
   std::vector<uint8_t> plane;
@@ -492,6 +515,9 @@ struct Decoder {
   int mcux = 0, mcuy = 0;  // MCUs per row, MCU rows (interleaved)
 
   int pending_marker = 0;  // a marker read but not yet processed
+  bool hit_end = false;    // the data ended before an EOI marker
+  int scan_number = 0;     // libjpeg's input_scan_number
+  int last_good_imcu = 0;  // libjpeg's master->last_good_iMCU_row
   bool header_done = false;
 
   std::vector<jpeg_component_info> info;
@@ -500,8 +526,14 @@ struct Decoder {
 
   // ---- markers
 
+  // Past the end of the data, jpeg_mem_src supplies a fake EOI marker at
+  // every refill, so a marker segment cut short reads on through FF D9
+  // FF D9 ... (and the marker after it is EOI).
   int byte() {
-    if (pos >= size) fail("unexpected end of JPEG data");
+    if (pos >= size) {
+      hit_end = true;
+      return (pos++ - size) % 2 == 0 ? 0xFF : 0xD9;
+    }
     return data[pos++];
   }
   int u16() {
@@ -517,35 +549,50 @@ struct Decoder {
     }
     // skip anything up to an FF, then fill bytes
     for (;;) {
-      if (pos >= size) return 0xD9;  // a missing EOI reads as one
+      if (pos >= size) {  // a missing EOI reads as one
+        hit_end = true;
+        return 0xD9;
+      }
       int c = data[pos++];
       if (c != 0xFF) continue;
       do {
-        if (pos >= size) return 0xD9;
+        if (pos >= size) {
+          hit_end = true;
+          return 0xD9;
+        }
         c = data[pos++];
       } while (c == 0xFF);
       if (c != 0) return c;
     }
   }
 
+  // Skip n bytes of a segment (into the fake EOIs past the end).
+  void skip(int n) {
+    if (pos + n > size) hit_end = true;
+    pos += n;
+  }
+
   void skip_segment() {
     const int len = u16();
-    if (len < 2 || pos + (len - 2) > size) fail("bad marker length");
-    pos += len - 2;
+    if (len < 2) fail("bad marker length");
+    skip(len - 2);
   }
 
   void read_app(int marker) {
     const int len = u16();
-    if (len < 2 || pos + (len - 2) > size) fail("bad marker length");
-    const uint8_t* p = data + pos;
+    if (len < 2) fail("bad marker length");
     const int n = len - 2;
+    uint8_t p[12];
+    const size_t start = pos;
+    for (int i = 0; i < 12 && i < n; ++i) p[i] = static_cast<uint8_t>(byte());
+    pos = start;
     if (marker == 0xE0 && n >= 5 && std::memcmp(p, "JFIF\0", 5) == 0)
       saw_jfif = true;
     if (marker == 0xEE && n >= 12 && std::memcmp(p, "Adobe", 5) == 0) {
       saw_adobe = true;
       adobe_transform = p[11];
     }
-    pos += n;
+    skip(n);
   }
 
   void read_dqt() {
@@ -583,7 +630,7 @@ struct Decoder {
       std::memset(h.vals, 0, sizeof(h.vals));
       for (int i = 0; i < count; ++i) h.vals[i] = static_cast<uint8_t>(byte());
       len -= count;
-      h.build(tc == 0);
+      h.build();
     }
     if (len != 0) fail("bad DHT length");
   }
@@ -603,6 +650,8 @@ struct Decoder {
     if (n != 1 && n != 3) fail("only 1- and 3-component JPEG is supported");
     comps.assign(n, Component());
     for (auto& c : comps) {
+      std::fill(std::begin(c.bits), std::end(c.bits), -1);
+      std::fill(std::begin(c.prev_bits), std::end(c.prev_bits), -1);
       c.id = byte();
       const int hv = byte();
       c.h = hv >> 4;
@@ -794,17 +843,21 @@ struct Decoder {
       m = next_marker();
       br.pos = pos;
     }
-    // not a restart marker: left for the marker reader, and the rest of the
-    // scan decodes as zeros
+    // not a restart marker: left for the marker reader, and the segment
+    // after it is empty. As process_restart, the out-of-data flag clears
+    // only past a real RSTn; otherwise it stays as it was, so an interval
+    // that ended cleanly at the end of the data still decodes its next MCU
+    // from zero bits (and then stops), as libjpeg does.
     if (m < 0xD0 || m > 0xD7) br.unread_marker = m;
     for (int i = 0; i < n; ++i) last_dc[i] = 0;
-    br.insufficient = br.unread_marker != 0;
+    if (br.unread_marker == 0) br.insufficient = false;
   }
 
   void read_scan() {
     const int len = u16();
     const int ns = byte();
     if (ns < 1 || ns > 4 || len != 6 + 2 * ns) fail("bad SOS");
+    ++scan_number;
     std::vector<Component*> sc;
     for (int i = 0; i < ns; ++i) {
       const int id = byte();
@@ -833,14 +886,24 @@ struct Decoder {
       const bool bad = (dc_band ? se != 0 : (ss > se || se > 63 || ns != 1)) ||
                        (ah != 0 && al != ah - 1) || al > 13;
       if (bad) fail("bad progressive scan parameters");
+      // start_pass_phuff_decoder's update of the progression status
+      for (Component* c : sc) {
+        for (int k = std::min(ss, 1); k <= std::max(se, 9); ++k)
+          c->prev_bits[k] = scan_number > 1 ? c->bits[k] : 0;
+        for (int k = ss; k <= se; ++k) c->bits[k] = al;
+      }
     }
     // the tables the scan decodes with: a DC refinement needs none
     const bool need_dc = !progressive || (dc_band && ah == 0);
     const bool need_ac = !progressive || !dc_band;
-    for (const Component* c : sc)
+    for (const Component* c : sc) {
       if ((need_dc && !dc[c->dc_tbl].defined) ||
           (need_ac && !ac[c->ac_tbl].defined))
         fail("a Huffman table is missing");
+      if ((need_dc && !dc[c->dc_tbl].dc_valid) ||
+          (need_ac && !ac[c->ac_tbl].valid))
+        fail("bad Huffman table");
+    }
 
     BitReader br;
     br.data = data;
@@ -850,7 +913,10 @@ struct Decoder {
     int eobrun = 0;
     int to_go = restart_interval;
 
-    auto mcu_prologue = [&]() {
+    // the iMCU row of each MCU that starts with data left is the last good
+    // one (as far as this scan got)
+    auto mcu_prologue = [&](int imcu_row) {
+      if (!br.insufficient) last_good_imcu = imcu_row;
       if (restart_interval) {
         if (to_go == 0) {
           restart(br, last_dc, ns);
@@ -883,13 +949,13 @@ struct Decoder {
       Component& c = *sc[0];
       for (int by = 0; by < c.bh; ++by)
         for (int bx = 0; bx < c.bw; ++bx) {
-          if (!mcu_prologue()) continue;
+          if (!mcu_prologue(by / c.v)) continue;
           block(0, &c.coef[(static_cast<size_t>(by) * c.bw_pad + bx) * 64]);
         }
     } else {
       for (int my = 0; my < mcuy; ++my)
         for (int mx = 0; mx < mcux; ++mx) {
-          if (!mcu_prologue()) continue;
+          if (!mcu_prologue(my)) continue;
           for (int i = 0; i < ns; ++i) {
             Component& c = *sc[i];
             for (int v = 0; v < c.v; ++v)
@@ -904,6 +970,7 @@ struct Decoder {
     // carry on after the segment: at the marker that ended it, if one did
     pos = br.pos;
     if (br.unread_marker) pending_marker = br.unread_marker;
+    hit_end = hit_end || br.hit_end;
   }
 
   // Every scan up to EOI.
@@ -976,11 +1043,102 @@ struct Decoder {
     ci->output_scanline = 0;
 
     read_scans();
-    for (auto& c : comps) idct_component(c);
+    if (hit_end) ++ci->err->num_warnings;  // JWRN_JPEG_EOF
+    const bool smooth = smoothing_ok();
+    for (auto& c : comps) idct_component(c, smooth);
     if (!ci->raw_data_out) render(ci);
   }
 
-  void idct_component(Component& c) {
+  // ---- interblock smoothing (libjpeg-turbo 2.1, jdcoefct.c)
+
+  // natural positions of the zigzag coefficients 0-9 that smoothing reads
+  static constexpr int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+
+  // smoothing_ok: a progressive file whose every component has its DC
+  // partly known and nonzero quantizers at the ten positions, and some
+  // component with one of AC 1-9 not fully refined
+  bool smoothing_ok() const {
+    if (!progressive) return false;
+    bool useful = false;
+    for (const auto& c : comps) {
+      for (int pos : kSmoothPos)
+        if (c.quant[pos] == 0) return false;
+      if (c.bits[0] < 0) return false;
+      for (int k = 1; k < 10; ++k) useful = useful || c.bits[k] != 0;
+    }
+    return useful;
+  }
+
+  // decompress_smooth_data for one block: `ws` is the block's copy,
+  // dcv[5][5] the DC values around it (row-major, the block at [2][2]),
+  // `bits` the latched coef_bits of zigzag 0-9
+  static void smooth_block(int16_t* ws, const int (&dcv)[5][5],
+                           const int* bits, const uint16_t* q) {
+    auto d = [&](int n) {  // libjpeg's DC01..DC25
+      return static_cast<int64_t>(dcv[(n - 1) / 5][(n - 1) % 5]);
+    };
+    const bool change_dc = bits[1] == -1 && bits[2] == -1 && bits[3] == -1 &&
+                           bits[4] == -1 && bits[5] == -1 && bits[6] == -1 &&
+                           bits[7] == -1 && bits[8] == -1 && bits[9] == -1;
+    const int64_t q00 = q[0];
+    // an estimate of zigzag coefficient k, at natural position pos, from
+    // the DC sum `sum`, where the coefficient is still zero and not known
+    // to full precision; capped below 2^Al
+    auto estimate = [&](int k, int64_t sum) {
+      const int al = bits[k];
+      const int pos = kSmoothPos[k];
+      if (al == 0 || ws[pos] != 0) return;
+      const int64_t qk = q[pos];
+      const int64_t num = q00 * sum;
+      int pred = static_cast<int>(((qk << 7) + (num >= 0 ? num : -num)) /
+                                  (qk << 8));
+      if (al > 0 && pred >= (1 << al)) pred = (1 << al) - 1;
+      ws[pos] = static_cast<int16_t>(num >= 0 ? pred : -pred);
+    };
+    estimate(1, change_dc
+        ? -d(1) - d(2) + d(4) + d(5) - 3 * d(6) + 13 * d(7) - 13 * d(9) +
+          3 * d(10) - 3 * d(11) + 38 * d(12) - 38 * d(14) + 3 * d(15) -
+          3 * d(16) + 13 * d(17) - 13 * d(19) + 3 * d(20) - d(21) - d(22) +
+          d(24) + d(25)
+        : -7 * d(11) + 50 * d(12) - 50 * d(14) + 7 * d(15));
+    estimate(2, change_dc
+        ? -d(1) - 3 * d(2) - 3 * d(3) - 3 * d(4) - d(5) - d(6) + 13 * d(7) +
+          38 * d(8) + 13 * d(9) - d(10) + d(16) - 13 * d(17) - 38 * d(18) -
+          13 * d(19) + d(20) + d(21) + 3 * d(22) + 3 * d(23) + 3 * d(24) +
+          d(25)
+        : -7 * d(3) + 50 * d(8) - 50 * d(18) + 7 * d(23));
+    estimate(3, change_dc
+        ? d(3) + 2 * d(7) + 7 * d(8) + 2 * d(9) - 5 * d(12) - 14 * d(13) -
+          5 * d(14) + 2 * d(17) + 7 * d(18) + 2 * d(19) + d(23)
+        : -d(3) + 13 * d(8) - 24 * d(13) + 13 * d(18) - d(23));
+    estimate(4, change_dc
+        ? -d(1) + d(5) + 9 * d(7) - 9 * d(9) - 9 * d(17) + 9 * d(19) + d(21) -
+          d(25)
+        : d(10) + d(16) - 10 * d(17) + 10 * d(19) - d(2) - d(20) + d(22) -
+          d(24) + d(4) - d(6) + 10 * d(7) - 10 * d(9));
+    estimate(5, change_dc
+        ? 2 * d(7) - 5 * d(8) + 2 * d(9) + d(11) + 7 * d(12) - 14 * d(13) +
+          7 * d(14) + d(15) + 2 * d(17) - 5 * d(18) + 2 * d(19)
+        : -d(11) + 13 * d(12) - 24 * d(13) + 13 * d(14) - d(15));
+    if (!change_dc) return;
+    estimate(6, d(7) - d(9) + 2 * d(12) - 2 * d(14) + d(17) - d(19));
+    estimate(7, d(7) - 3 * d(8) + d(9) - d(17) + 3 * d(18) - d(19));
+    estimate(8, d(7) - d(9) - 3 * d(12) + 3 * d(14) + d(17) - d(19));
+    estimate(9, d(7) + 2 * d(8) + d(9) - d(17) - 2 * d(18) - d(19));
+    // the DC itself, from a Gaussian-like kernel (weights sum to 256)
+    const int64_t num =
+        q00 * (-2 * d(1) - 6 * d(2) - 8 * d(3) - 6 * d(4) - 2 * d(5) -
+               6 * d(6) + 6 * d(7) + 42 * d(8) + 6 * d(9) - 6 * d(10) -
+               8 * d(11) + 42 * d(12) + 152 * d(13) + 42 * d(14) -
+               8 * d(15) - 6 * d(16) + 6 * d(17) + 42 * d(18) + 6 * d(19) -
+               6 * d(20) - 2 * d(21) - 6 * d(22) - 8 * d(23) - 6 * d(24) -
+               2 * d(25));
+    const int pred =
+        static_cast<int>(((q00 << 7) + (num >= 0 ? num : -num)) / (q00 << 8));
+    ws[0] = static_cast<int16_t>(num >= 0 ? pred : -pred);
+  }
+
+  void idct_component(Component& c, bool smooth) {
     void (*idct)(const int16_t*, const uint16_t*, uint8_t*, size_t) =
         c.ssize == 8 ? idct_8x8
         : c.ssize == 4 ? idct_4x4
@@ -989,11 +1147,62 @@ struct Decoder {
     c.pw = c.bw * c.ssize;
     c.ph = c.bh * c.ssize;
     c.plane.assign(static_cast<size_t>(c.pw) * c.ph, 0);
-    for (int by = 0; by < c.bh; ++by)
-      for (int bx = 0; bx < c.bw; ++bx)
-        idct(&c.coef[(static_cast<size_t>(by) * c.bw_pad + bx) * 64], c.quant,
-             &c.plane[static_cast<size_t>(by) * c.ssize * c.pw + bx * c.ssize],
-             static_cast<size_t>(c.pw));
+    auto blk = [&](int by, int bx) {
+      return &c.coef[(static_cast<size_t>(by) * c.bw_pad + bx) * 64];
+    };
+    auto out = [&](int by, int bx) {
+      return &c.plane[static_cast<size_t>(by) * c.ssize * c.pw + bx * c.ssize];
+    };
+    if (!smooth) {
+      for (int by = 0; by < c.bh; ++by)
+        for (int bx = 0; bx < c.bw; ++bx)
+          idct(blk(by, bx), c.quant, out(by, bx), static_cast<size_t>(c.pw));
+      std::vector<int16_t>().swap(c.coef);
+      return;
+    }
+    // smoothing_ok's latch: the status now, and before the component's
+    // latest scan (-1 for a file of one scan), used for the iMCU rows past
+    // the last good one
+    int cur[10], prev[10];
+    for (int k = 0; k < 10; ++k) {
+      cur[k] = c.bits[k];
+      prev[k] = k == 0 ? c.bits[0] : (scan_number > 1 ? c.prev_bits[k] : -1);
+    }
+    const int last = mcuy - 1;
+    int16_t ws[64];
+    for (int m = 0; m <= last; ++m) {
+      int rows = c.v;
+      if (m == last) {
+        rows = c.bh % c.v;
+        if (rows == 0) rows = c.v;
+      }
+      const int* bits = m > last_good_imcu ? prev : cur;
+      for (int br = 0; br < rows; ++br) {
+        // the block rows of the window, clamped as decompress_smooth_data
+        // clamps them: by iMCU row, not by the image's edge
+        const int r = m * c.v + br;
+        const int r_prev = (br > 0 || m > 0) ? r - 1 : r;
+        const int r_pprev = (br > 1 || m > 1) ? r - 2 : r_prev;
+        const int r_next = (br < rows - 1 || m < last) ? r + 1 : r;
+        const int r_nnext = (br < rows - 2 || m + 1 < last) ? r + 2 : r_next;
+        const int wrow[5] = {r_pprev, r_prev, r, r_next, r_nnext};
+        int dcv[5][5];
+        for (int i = 0; i < 5; ++i)
+          for (int j = 0; j < 5; ++j) dcv[i][j] = blk(wrow[i], 0)[0];
+        const int last_col = c.bw - 1;
+        for (int bx = 0; bx <= last_col; ++bx) {
+          std::memcpy(ws, blk(r, bx), sizeof(ws));
+          if (bx == 0 && bx < last_col)
+            for (int i = 0; i < 5; ++i) dcv[i][3] = blk(wrow[i], 1)[0];
+          if (bx + 1 < last_col)
+            for (int i = 0; i < 5; ++i) dcv[i][4] = blk(wrow[i], bx + 2)[0];
+          smooth_block(ws, dcv, bits, c.quant);
+          idct(ws, c.quant, out(r, bx), static_cast<size_t>(c.pw));
+          for (int i = 0; i < 5; ++i)
+            for (int j = 0; j < 4; ++j) dcv[i][j] = dcv[i][j + 1];
+        }
+      }
+    }
     std::vector<int16_t>().swap(c.coef);
   }
 
@@ -1204,6 +1413,7 @@ struct jpeg_error_mgr* jpeg_std_error(struct jpeg_error_mgr* err) {
   err->error_exit = default_error_exit;
   err->output_message = default_output_message;
   err->last_message[0] = 0;
+  err->num_warnings = 0;
   return err;
 }
 

@@ -1,16 +1,20 @@
 // Full-resolution JPEG decode: one JPEG in, (H, W, 3) RGB out at scale 1/1
 // with fancy upsampling and no resize — the pixels of libjpeg's defaults,
 // which are what PIL's Image.open(path).convert("RGB") gives for a YCbCr
-// or grayscale JPEG. Built into the decode pool's library beside
-// jdecode.cc; each call is independent, so callers decode in parallel
-// from their own threads (ctypes releases the GIL).
+// or grayscale JPEG — or at libjpeg's scale 1/2 or 1/4, as cv2.imdecode's
+// IMREAD_REDUCED_COLOR_2 and _4 decode. Built into the decode pool's
+// library beside jdecode.cc; each call is independent, so callers decode
+// in parallel from their own threads (ctypes releases the GIL).
 //
 // C ABI:
 //   int jd_image_size(const unsigned char* jpeg, long len, int* h, int* w);
-//   int jd_decode_rgb(const unsigned char* jpeg, long len, int h, int w,
-//                     unsigned char* out /* h*w*3 */);
+//   int jd_decode_rgb(const unsigned char* jpeg, long len, int denom, int h,
+//                     int w, unsigned char* out /* h*w*3 */);
 //   both return 0 on success and -1 when the decoder refuses the JPEG;
-//   jd_decode_rgb returns -2 when the image is not h×w.
+//   jd_decode_rgb decodes at scale 1/denom, returns -2 when the image at
+//   that scale is not h×w, and -3 when the data ended before the EOI
+//   marker (libjpeg's "premature end of JPEG file"): `out` then holds the
+//   decode libjpeg gives, which PIL and cv2 refuse.
 
 #include <csetjmp>
 #include <cstddef>
@@ -50,8 +54,8 @@ int jd_image_size(const unsigned char* jpeg, long len, int* h, int* w) {
   return 0;
 }
 
-int jd_decode_rgb(const unsigned char* jpeg, long len, int h, int w,
-                  unsigned char* out) {
+int jd_decode_rgb(const unsigned char* jpeg, long len, int denom, int h,
+                  int w, unsigned char* out) {
   jpeg_decompress_struct cinfo;
   ErrorMgr err;
   cinfo.err = jpeg_std_error(&err.pub);
@@ -65,7 +69,7 @@ int jd_decode_rgb(const unsigned char* jpeg, long len, int h, int w,
   jpeg_read_header(&cinfo, TRUE);
   cinfo.out_color_space = JCS_RGB;
   cinfo.scale_num = 1;
-  cinfo.scale_denom = 1;
+  cinfo.scale_denom = static_cast<unsigned int>(denom);
   cinfo.do_fancy_upsampling = TRUE;
   jpeg_start_decompress(&cinfo);
   if (static_cast<int>(cinfo.output_height) != h ||
@@ -80,8 +84,9 @@ int jd_decode_rgb(const unsigned char* jpeg, long len, int h, int w,
     jpeg_read_scanlines(&cinfo, &row, 1);
   }
   jpeg_finish_decompress(&cinfo);
+  const bool truncated = err.pub.num_warnings > 0;
   jpeg_destroy_decompress(&cinfo);
-  return 0;
+  return truncated ? -3 : 0;
 }
 
 }  // extern "C"

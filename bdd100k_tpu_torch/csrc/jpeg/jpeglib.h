@@ -70,6 +70,7 @@ struct jpeg_error_mgr {
   void (*error_exit)(j_common_ptr cinfo); /* must not return */
   void (*output_message)(j_common_ptr cinfo);
   char last_message[200];
+  long num_warnings; /* warnings given; the only one is JWRN_JPEG_EOF */
 };
 
 struct jpeg_common_struct {

@@ -9,7 +9,9 @@ pool's own fixed-point bilinear resize to a (size, size) square, as RGB, or
 as planar YUV 4:2:0 (half the bytes on the way to the card); a batch of
 decoded RGB frames resizes and converts to those planes in one call too
 (`resize_yuv420_batch`, the serving path's host resize). `decode_full`
-decodes one JPEG at full resolution, with no resize, in the calling thread.
+decodes one JPEG at full resolution, with no resize, in the calling thread,
+and `decode_scaled` at libjpeg's 1/2 or 1/4; both refuse a file cut before
+its EOI marker, as PIL and cv2 do, where the pool decodes what is there.
 The library is built at first use (`utils/host_build.py`); a JPEG the
 decoder refuses (arithmetic-coded, 12-bit, CMYK) fails its call.
 """
@@ -117,18 +119,43 @@ class NativeDecoder:
         self.close()
 
 
-def decode_full(jpeg: bytes) -> np.ndarray:
-    """One JPEG → (H, W, 3) uint8 RGB at full resolution: scale 1/1, fancy
-    upsampling, no resize (`csrc/jpeg/jfull.cc`), the pixels of PIL's
-    `Image.open(path).convert("RGB")`. Releases the GIL while it decodes,
-    so a thread pool of these runs in parallel."""
+def image_size(jpeg: bytes) -> tuple[int, int]:
+    """A JPEG's (height, width) from its header, without decoding it."""
     if not isinstance(jpeg, bytes) or not jpeg:
-        raise ValueError("decode_full takes non-empty bytes")
+        raise ValueError("a JPEG decode takes non-empty bytes")
     lib = decode_pool_library()
     h, w = ctypes.c_int(), ctypes.c_int()
     if lib.jd_image_size(jpeg, len(jpeg), ctypes.byref(h), ctypes.byref(w)):
         raise ValueError("the JPEG's header could not be read")
-    out = np.empty((h.value, w.value, 3), np.uint8)
-    if lib.jd_decode_rgb(jpeg, len(jpeg), h.value, w.value, out.ctypes.data):
-        raise ValueError("the JPEG failed to decode")
+    return h.value, w.value
+
+
+def decode_scaled(jpeg: bytes, denom: int = 1, name: str | None = None
+                  ) -> np.ndarray:
+    """One JPEG → (⌈H/denom⌉, ⌈W/denom⌉, 3) uint8 RGB: libjpeg's decode at
+    scale 1/denom (1, 2 or 4) with fancy upsampling and no resize, in the
+    calling thread (the GIL is released). A file whose data ends before its
+    EOI marker raises OSError naming `name`, as PIL and cv2 refuse it."""
+    if denom not in (1, 2, 4):
+        raise ValueError(f"scale 1/{denom}: only 1, 2 and 4 are decoded")
+    h, w = image_size(jpeg)
+    h, w = -(-h // denom), -(-w // denom)
+    out = np.empty((h, w, 3), np.uint8)
+    rc = decode_pool_library().jd_decode_rgb(jpeg, len(jpeg), denom, h, w,
+                                             out.ctypes.data)
+    if rc == -3:
+        raise OSError(f"{name or 'JPEG data'}: image file is truncated (the "
+                      "data ends before the EOI marker)")
+    if rc:
+        raise ValueError(f"{name or 'the JPEG'} failed to decode")
     return out
+
+
+def decode_full(jpeg: bytes, name: str | None = None) -> np.ndarray:
+    """One JPEG → (H, W, 3) uint8 RGB at full resolution: scale 1/1, fancy
+    upsampling, no resize (`csrc/jpeg/jfull.cc`), the pixels of PIL's
+    `Image.open(path).convert("RGB")`, and like PIL (LOAD_TRUNCATED_IMAGES
+    off) it raises OSError, naming `name`, on a file cut before its EOI
+    marker. Releases the GIL while it decodes, so a thread pool of these
+    runs in parallel."""
+    return decode_scaled(jpeg, 1, name)

@@ -37,8 +37,14 @@ from bdd100k_tpu_torch.data.bdd100k import (
     load_bdd100k_labels,
     pad_ground_truth,
 )
-from bdd100k_tpu_torch.data.host_resize import resize_bicubic
-from bdd100k_tpu_torch.data.native_decode import NativeDecoder, decode_full
+from bdd100k_tpu_torch.data.host_resize import resize_bicubic, resize_linear
+from bdd100k_tpu_torch.data.native_decode import (
+    NativeDecoder,
+    decode_full,
+    decode_scaled,
+    image_size,
+)
+from bdd100k_tpu_torch.data.png import decode_png, is_png
 
 
 class Batch(NamedTuple):
@@ -80,6 +86,30 @@ def rgb_to_yuv420_host(images: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
             np.clip(uv + 0.5, 0, 255).astype(np.uint8))
 
 
+def decode_image(data: bytes, name: str | None = None) -> np.ndarray:
+    """A JPEG or PNG file's bytes → (H, W, 3) uint8 RGB at full resolution,
+    the pixels of PIL's `Image.open(path).convert("RGB")`; a truncated file
+    raises OSError naming `name`, as PIL does."""
+    if is_png(data):
+        return decode_png(data, name=name)
+    return decode_full(data, name=name)
+
+
+def decode_jpeg_bytes_resized(data: bytes, size: int,
+                              name: str | None = None) -> np.ndarray:
+    """JPEG bytes → (size, size, 3) uint8 RGB by the reference's route on a
+    host with cv2 (bdd100k_tpu/data/pipeline.py decode_jpeg_bytes_resized):
+    libjpeg's 1/4 or 1/2 scaled decode (cv2's IMREAD_REDUCED_COLOR_4 / _2)
+    when the shorter side is at least 4× or 2× `size`, else a full decode,
+    then cv2's INTER_LINEAR resize. The reference's `DetectionDataset`
+    decodes an item so at a decode_size; its loader, and the port's, take
+    the decode pool instead, whose pixels differ by a level here and
+    there."""
+    h, w = image_size(data)
+    denom = 4 if min(h, w) >= 4 * size else 2 if min(h, w) >= 2 * size else 1
+    return resize_linear(decode_scaled(data, denom, name)[None], size, size)[0]
+
+
 class InMemoryDataset:
     """Frames and padded GT held in host memory."""
 
@@ -109,8 +139,8 @@ class FullResolutionPool:
     def __init__(self, num_workers: int = 8):
         self._pool = ThreadPoolExecutor(max_workers=num_workers)
 
-    def map(self, fn, items) -> list:
-        return list(self._pool.map(fn, items))
+    def map(self, fn, *items) -> list:
+        return list(self._pool.map(fn, *items))
 
     def close(self) -> None:
         self._pool.shutdown(wait=False, cancel_futures=True)
@@ -126,7 +156,10 @@ class DetectionDataset:
     decodes at full resolution (`decode_full`, PIL's pixels), and an image
     that is not image_height × image_width is resized to it with PIL's
     default filter, bicubic (`data/host_resize.resize_bicubic`), as the
-    reference's PIL route resizes it."""
+    reference's PIL route resizes it. A PNG decodes there too
+    (`decode_image`), and a JPEG cut before its EOI marker raises, as PIL
+    does; the pool at a decode_size takes JPEGs only, and decodes a
+    truncated one as far as it goes, as the reference's pool does."""
 
     def __init__(
         self,
@@ -158,10 +191,11 @@ class DetectionDataset:
         return [(self.image_dir / self.records[i]["name"]).read_bytes()
                 for i in idx]
 
-    def decode_full(self, jpeg: bytes) -> np.ndarray:
-        """One JPEG at full resolution, resized to image_height ×
-        image_width if it is another size."""
-        image = decode_full(jpeg)
+    def decode_full(self, jpeg: bytes, name: str | None = None) -> np.ndarray:
+        """One JPEG or PNG at full resolution, resized to image_height ×
+        image_width if it is another size; `name` names the file in an
+        error."""
+        image = decode_image(jpeg, name)
         if image.shape[:2] != (self.image_height, self.image_width):
             image = resize_bicubic(image[None], self.image_height,
                                    self.image_width)[0]
@@ -175,7 +209,7 @@ class DetectionDataset:
         boxes, labels, mask = pad_ground_truth(
             rec["boxes"], rec["labels"], self.max_boxes)
         if self.decode_size is None:
-            image = self.decode_full(self.read_jpegs([i])[0])
+            image = self.decode_full(self.read_jpegs([i])[0], rec["name"])
         else:
             decoder = NativeDecoder(1)
             try:
@@ -210,7 +244,8 @@ class DetectionDataset:
         (a `FullResolutionPool` without a decode_size), and their GT."""
         jpegs = self.read_jpegs(idx)
         if self.decode_size is None:
-            images = np.stack(decoder.map(self.decode_full, jpegs))
+            names = [self.records[i]["name"] for i in idx]
+            images = np.stack(decoder.map(self.decode_full, jpegs, names))
         elif wire_format == "yuv420":
             images = decoder.decode_batch_yuv420(jpegs, self.decode_size)
         else:

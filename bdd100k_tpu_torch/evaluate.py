@@ -11,6 +11,9 @@ bdd100k_tpu/evaluate.py).
         --synthetic 64 --ckpt_dir artifacts/ssd_vgg16_512_synth9k.npz
     python -m bdd100k_tpu_torch.evaluate --labels val.json \\
         --image_dir images/val --ckpt_dir runs/ssd300 --ema
+    python -m bdd100k_tpu_torch.evaluate --synthetic 64 \\
+        --ckpt_dir artifacts/ssd_mobilenet_300_synth9k.npz \\
+        --quant int8_static --calib_images calib_frames/
     # on the CPU (the plain versions of the kernels): add --device cpu
 
 JPEG files decode on the host straight to the model's input size, a batch
@@ -20,6 +23,12 @@ postprocess with the NMS kernel (`parallel/train_step.make_eval_step`);
 only the fixed detection slots come back, and the host accumulates the
 mAP. Batch k+1 is dispatched before batch k is fetched and accumulated, so
 the host's bookkeeping overlaps the card's work.
+
+`--quant int8` / `int8_static` run the dense convs in int8 (models/layers.py
+QuantConv); int8_static first calibrates its activation scales, on
+`--calib_images` or on the eval set's first `--calib_batches` batches of 8
+(models/quant.py), and the result records `calib_images_used` and
+`calib_source`.
 """
 
 from __future__ import annotations
@@ -40,6 +49,7 @@ from bdd100k_tpu_torch.data.pipeline import (
 )
 from bdd100k_tpu_torch.data.synthetic import FIXTURE_DIR, ensure_synthetic_dataset
 from bdd100k_tpu_torch.models.detector import build_detector
+from bdd100k_tpu_torch.models.quant import calibrate_for_driver, load_quant_state
 from bdd100k_tpu_torch.ops.map_metric import DetectionEvaluator
 from bdd100k_tpu_torch.ops.nms import Detections
 from bdd100k_tpu_torch.parallel.train_step import make_eval_step
@@ -92,11 +102,20 @@ def parse_args(argv=None):
                         "plain greedy on the CPU")
     p.add_argument("--quant", choices=("none", "int8", "int8_static"),
                    default="none",
-                   help="int8 is not ported yet (ROADMAP Queue 1 item 10)")
+                   help="post-training int8 for the dense convs (same "
+                        "checkpoint; compare the mAP with none). int8: "
+                        "per-batch activation scales; int8_static: scales "
+                        "calibrated once (--calib_images, else the first "
+                        "--calib_batches eval batches), then frozen")
     p.add_argument("--calib_images", default=None,
-                   help="int8_static calibration; not ported yet (item 10)")
+                   help="int8_static: a directory of representative frames "
+                        "(.jpg/.jpeg/.png, at most 64) to calibrate on. "
+                        "Default: the eval set's head, which leaks eval data "
+                        "into the scales; the result JSON records "
+                        "calib_images_used either way")
     p.add_argument("--calib_batches", type=int, default=8,
-                   help="int8_static calibration; not ported yet (item 10)")
+                   help="int8_static: the 8-image batches read from the eval "
+                        "set when --calib_images is not given")
     p.add_argument("--preselect", choices=("exact", "approx"), default="exact",
                    help="per-class candidate preselect. The reference's "
                         "approx is lax.approx_max_k, which is exact on every "
@@ -126,9 +145,6 @@ def refuse_unported(args) -> None:
     """Flags whose slice is still to come raise SystemExit, naming the
     ROADMAP item, when set away from their defaults."""
     later = []
-    if args.quant != "none" or args.calib_images is not None \
-            or args.calib_batches != 8:
-        later.append(("--quant/--calib_*", "item 10 (int8 quant)"))
     if args.multihost or args.sync_dir is not None or args.mesh_data is not None:
         later.append(("--multihost/--sync_dir/--mesh_data",
                       "item 11 (multi-GPU and multi-host)"))
@@ -175,13 +191,27 @@ def fetch_async(tensors: list[torch.Tensor]):
     return host, done
 
 
-def run_eval(bundle, dataset, args) -> dict:
+def run_eval(bundle, dataset, args, quant_state=None) -> dict:
     """Evaluate `dataset` on the bundle's device → the result dict: the
     evaluator's mAP and per-class AP, `coco` with --coco_map,
     `images_per_sec` (steady state: the first batch, which pays the kernel
     builds and first launches, is fenced out of the clock; None when the
-    run is that one batch) and `num_images`."""
+    run is that one batch) and `num_images`. An "int8_static" bundle runs
+    on `quant_state` (`models/quant.quant_state`) when given, else
+    calibrates first (`calibrate_for_driver`: `args.calib_images`, else
+    the dataset's head) and adds `calib_images_used` and `calib_source`."""
     device = bundle.anchors.device
+    n_calib = None
+    if bundle.config.quant == "int8_static":
+        if quant_state is not None:
+            load_quant_state(bundle.model, quant_state)
+        else:
+            calib_images = getattr(args, "calib_images", None)
+            _, n_calib = calibrate_for_driver(
+                bundle, calib_images=calib_images, dataset=dataset,
+                num_batches=getattr(args, "calib_batches", 8))
+            print(f"int8_static: calibrated act scales on {n_calib} images"
+                  + ("" if calib_images else " (eval-set head)"))
     eval_step = make_eval_step(bundle)
     wire = getattr(args, "wire", "rgb")
     print(f"wire format: {wire}")
@@ -242,6 +272,10 @@ def run_eval(bundle, dataset, args) -> dict:
     result["images_per_sec"] = (
         round(min(timed, seen) / dt, 2) if timed and dt > 0 else None)
     result["num_images"] = seen
+    if n_calib is not None:
+        result["calib_images_used"] = n_calib
+        result["calib_source"] = (getattr(args, "calib_images", None)
+                                  or "eval-set head")
     if dump is not None:
         Path(args.dump_detections).write_text(json.dumps(dump))
         print(f"wrote {seen} images of detections to {args.dump_detections}")
@@ -276,6 +310,7 @@ def main(argv=None) -> dict:
     if args.per_class_topk is not None:
         det_cfg = dataclasses.replace(det_cfg, postprocess=dataclasses.replace(
             det_cfg.postprocess, per_class_topk=args.per_class_topk))
+    det_cfg = dataclasses.replace(det_cfg, quant=args.quant)
     dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
     with strict_f32(args.dtype == "float32"):
         bundle = build_detector(det_cfg, dtype=dtype, device=device)

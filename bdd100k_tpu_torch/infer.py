@@ -14,22 +14,28 @@ brings it back; `__call__` does both.
     python -m bdd100k_tpu_torch.infer --config ssd_vgg16_512 \\
         --ckpt_dir artifacts/ssd_vgg16_512_synth9k.npz --image_dir DIR \\
         --batch_size 32 --out_dir out/
+    python -m bdd100k_tpu_torch.infer --config ssd_mobilenet_300 \\
+        --ckpt_dir artifacts/ssd_mobilenet_300_synth9k.npz --image_dir DIR \\
+        --quant int8_static --calib_images calib_frames/
     # on the CPU (the plain versions of the kernels): add --device cpu
 
-Two modes: one image (`run_single`, decoded at full resolution) and a
-pipelined directory sweep (`run_dir`). Departures from the reference:
-drawn outputs are PNG files (`det_<stem>.png`, written with zlib: the
-card's machine has no PIL or cv2); the video mode is not ported (it needs
-cv2.VideoCapture, which the card's machine lacks); PNG input is refused
-(ROADMAP Queue 1 item 13); int8 (`--quant`) waits for ROADMAP Queue 1
-item 10. `--dtype float32` is the port's own: it runs the convs in f32
-with TF32 off, where the printed detections can be held to an f32 run of
-the reference.
+Two modes: one image (`run_single`, decoded at full resolution, JPEG or
+PNG, as PIL decodes it) and a pipelined directory sweep (`run_dir`).
+`--quant int8` / `int8_static` run the dense convs in int8; int8_static
+calibrates on `--calib_images` when the predictor is built, else on the
+first batch it runs (padded rows included), as the reference does.
+Departures from the reference: drawn outputs are PNG files
+(`det_<stem>.png`, written with zlib: the card's machine has no PIL or
+cv2); the video mode is not ported (it needs cv2.VideoCapture, which the
+card's machine lacks). `--dtype float32` is the port's own: it runs the
+convs in f32 with TF32 off, where the printed detections can be held to
+an f32 run of the reference.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import queue
 import threading
 import time
@@ -46,22 +52,22 @@ from bdd100k_tpu_torch.configs.detector_configs import (
 )
 from bdd100k_tpu_torch.data.augment import preprocess_eval_batch
 from bdd100k_tpu_torch.data.host_resize import resize_linear
-from bdd100k_tpu_torch.data.native_decode import NativeDecoder, decode_full
+from bdd100k_tpu_torch.data.native_decode import NativeDecoder
 from bdd100k_tpu_torch.data.pipeline import (
     DetectionDataset,
+    decode_image,
     make_loader,
     resolve_wire,
     rgb_to_yuv420_host,
 )
 from bdd100k_tpu_torch.evaluate import fetch_async
 from bdd100k_tpu_torch.models.detector import DetectorBundle, build_detector
+from bdd100k_tpu_torch.models.quant import calibrate, calibrate_for_driver
 from bdd100k_tpu_torch.ops.nms import Detections
 from bdd100k_tpu_torch.utils.device import resolve_device, strict_f32
 from bdd100k_tpu_torch.utils.viz import draw_detections, write_png
 from bdd100k_tpu_torch.utils.weights import restore_eval_weights
 
-QUANT_LATER = "int8 quant is not ported yet (ROADMAP Queue 1 item 10)"
-PNG_LATER = "PNG input is not ported yet (ROADMAP Queue 1 item 13)"
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 VIDEO_NOT_PORTED = ("--video is not ported: it reads frames with "
                     "cv2.VideoCapture, which the GPU machine does not have")
@@ -108,8 +114,14 @@ def parse_args(argv=None):
                         "route: the CUDA greedy-NMS kernel on the card, the "
                         "plain greedy on the CPU")
     p.add_argument("--quant", choices=("none", "int8", "int8_static"),
-                   default="none", help=QUANT_LATER)
-    p.add_argument("--calib_images", default=None, help=QUANT_LATER)
+                   default="none",
+                   help="post-training int8 for the dense convs; int8_static "
+                        "freezes activation scales from --calib_images (or, "
+                        "without it, the first batch, whose amax then clips "
+                        "later frames: prefer --calib_images for streams)")
+    p.add_argument("--calib_images", default=None,
+                   help="int8_static: a directory of representative frames "
+                        "(.jpg/.jpeg/.png, at most 64) to calibrate on")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without CUDA) or cpu")
     p.add_argument("--dtype", choices=sorted(DTYPES), default="bfloat16",
@@ -145,13 +157,16 @@ class Predictor:
     resize and conversion in one call, whose small planes are then padded
     instead of the frames. `wire="yuv420"` without host resize converts
     the padded frames on the host (`rgb_to_yuv420_host`), dropping an odd
-    edge row or column."""
+    edge row or column.
+
+    An "int8_static" bundle calibrates its activation scales here on
+    `calib_images` (a directory, `models/quant.calibrate_for_driver`), or
+    else on the first batch it runs, padded rows included; later frames
+    above that batch's maxima clip."""
 
     def __init__(self, bundle: DetectorBundle, batch_size: int = 1,
                  host_resize: bool = False, wire: str = "rgb",
-                 quant: str = "none"):
-        if quant != "none":
-            raise NotImplementedError(f"quant={quant!r}: {QUANT_LATER}")
+                 calib_images: str | Path | None = None):
         if wire not in ("rgb", "yuv420"):
             raise ValueError(f"unknown wire {wire!r}")
         self.bundle = bundle
@@ -161,6 +176,12 @@ class Predictor:
         self.device = bundle.anchors.device
         self._native = (NativeDecoder(4) if wire == "yuv420" and host_resize
                         else None)
+        self._needs_calib = bundle.config.quant == "int8_static"
+        if self._needs_calib and calib_images is not None:
+            _, n = calibrate_for_driver(bundle, calib_images=calib_images)
+            self._needs_calib = False
+            print(f"int8_static: calibrated act scales on {n} frames "
+                  f"from {calib_images}")
 
     def host_frames(self, frames_u8: np.ndarray):
         """Frames (N ≤ batch_size, H, W, 3) uint8 → what goes on the wire:
@@ -182,13 +203,22 @@ class Predictor:
                    if isinstance(host, tuple) else _pin_to(host, self.device))
         return preprocess_eval_batch(on_card, self.bundle.config.image_size)
 
+    def _calibrate_once(self, host) -> None:
+        if self._needs_calib:  # the first batch doubles as the calibration set
+            calibrate(self.bundle, [host])
+            self._needs_calib = False
+            print("int8_static: calibrated act scales on the first batch")
+
     def logits(self, frames_u8: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
         """Padded batch → (loc (B, A, 4), cls (B, A, C+1)) f32 on the device."""
-        return self.bundle.apply(self._images(self.host_frames(frames_u8)))
+        host = self.host_frames(frames_u8)
+        self._calibrate_once(host)
+        return self.bundle.apply(self._images(host))
 
     def forward_ready(self, host) -> Detections:
         """A full batch already on the wire's host form (a loader's batch:
         RGB, or a (y, uv) pair) → device Detections, without waiting."""
+        self._calibrate_once(host)
         with torch.inference_mode():
             loc, cls = self.bundle.apply(self._images(host))
             return self.bundle.postprocess(loc, cls)
@@ -229,6 +259,7 @@ def load_predictor(
     wire: str = "auto",
     ema: bool = False,
     quant: str = "none",
+    calib_images: str | Path | None = None,
 ) -> Predictor:
     """A `Predictor` for `config` with the weights of `ckpt`: a .npz
     artifact (strict: every key, every shape; another recorded config name
@@ -236,11 +267,12 @@ def load_predictor(
     checkpoint (`ema`: its EMA shadow). `yolo_priors` replaces a YOLO
     config's anchor priors with a fitted set (`apply_yolo_priors`), which
     the weights must have been trained with. `wire` resolves as the
-    reference's does (`resolve_predictor_wire`). `device` defaults to CUDA
-    and raises without it; the CPU runs only when asked for."""
-    if quant != "none":
-        raise NotImplementedError(f"quant={quant!r}: {QUANT_LATER}")
+    reference's does (`resolve_predictor_wire`). `quant` sets the config's
+    int8 mode; "int8_static" calibrates on `calib_images`, or else on the
+    first batch (`Predictor`). `device` defaults to CUDA and raises without
+    it; the CPU runs only when asked for."""
     cfg = get_config(config) if isinstance(config, str) else config
+    cfg = dataclasses.replace(cfg, quant=quant)
     if yolo_priors:
         cfg = apply_yolo_priors(cfg, yolo_priors)
     if not Path(ckpt).exists():
@@ -249,7 +281,8 @@ def load_predictor(
     restore_eval_weights(bundle.model, ckpt, ema=ema, expect_config=cfg.name)
     return Predictor(
         bundle, batch_size, host_resize=host_resize,
-        wire=resolve_predictor_wire(wire, host_resize, cfg.image_size))
+        wire=resolve_predictor_wire(wire, host_resize, cfg.image_size),
+        calib_images=calib_images)
 
 
 # ------------------------------------------------------------------- CLI
@@ -259,15 +292,10 @@ def _want_host_resize(args, default: bool) -> bool:
     return {"auto": default, "on": True, "off": False}[args.host_resize]
 
 
-def _refuse_png(path: Path) -> None:
-    if path.suffix.lower() == ".png":
-        raise SystemExit(f"{path}: {PNG_LATER}")
-
-
 def _read_image(path) -> np.ndarray:
-    """A JPEG file → (H, W, 3) uint8 RGB at full resolution."""
-    _refuse_png(Path(path))
-    return decode_full(Path(path).read_bytes())
+    """A JPEG or PNG file → (H, W, 3) uint8 RGB at full resolution, PIL's
+    `convert("RGB")` pixels; a truncated file raises OSError naming it."""
+    return decode_image(Path(path).read_bytes(), str(path))
 
 
 def _cli_predictor(args, batch_size: int, host_resize: bool) -> Predictor:
@@ -277,7 +305,8 @@ def _cli_predictor(args, batch_size: int, host_resize: bool) -> Predictor:
         args.config, args.ckpt_dir, batch_size=batch_size,
         device=resolve_device(args.device), dtype=DTYPES[args.dtype],
         yolo_priors=args.yolo_priors,
-        host_resize=host_resize, wire=args.wire, ema=args.ema)
+        host_resize=host_resize, wire=args.wire, ema=args.ema,
+        quant=args.quant, calib_images=args.calib_images)
 
 
 def _emit(args, name, frame, det_i, out_dir):
@@ -350,15 +379,15 @@ def run_dir(args):
     are normalized, so any size draws correctly) and the wire is rgb; a
     pure sweep with host resize takes the yuv420 wire on "auto". A decode
     or IO error on the producer thread is raised here, never taken for the
-    end of the directory."""
+    end of the directory: with host resize the pool decodes JPEGs only, so
+    a .png in the directory fails its batch there, as the reference's pool
+    does; without it every file decodes as PIL decodes it, PNGs too."""
     paths = sorted(
         p for p in Path(args.image_dir).iterdir()
         if p.suffix.lower() in (".jpg", ".jpeg", ".png")
     )
     if not paths:
         raise SystemExit(f"no images in {args.image_dir}")
-    for p in paths:
-        _refuse_png(p)
     host_resize = _want_host_resize(args, default=True)
     # the loader does the host resize; the predictor sees ready frames
     predictor = _cli_predictor(args, batch_size=args.batch_size,
@@ -449,8 +478,6 @@ def run_dir(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.quant != "none" or args.calib_images is not None:
-        raise SystemExit(f"--quant/--calib_images: {QUANT_LATER}")
     if args.video:
         raise SystemExit(VIDEO_NOT_PORTED)
     if args.out_dir:

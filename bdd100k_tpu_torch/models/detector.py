@@ -39,9 +39,9 @@ class DetectorBundle:
 
 def _build_backbone(config: DetectorConfig, dtype: torch.dtype):
     if config.backbone == "mobilenet":
-        return MobileNetBackbone(config.width, dtype)
+        return MobileNetBackbone(config.width, dtype, config.quant)
     if config.backbone == "vgg16":
-        return VGG16Backbone(dtype)
+        return VGG16Backbone(dtype, config.quant)
     raise ValueError(f"unknown backbone {config.backbone!r}")
 
 
@@ -52,7 +52,9 @@ def build_detector(
     seed: int = 0,
 ) -> DetectorBundle:
     """The model in eval mode with f32 parameters on `device`; `dtype` is
-    the working type of its convs (bf16, or f32 for comparisons). The
+    the working type of its convs (bf16, or f32 for comparisons);
+    `config.quant` swaps the dense convs for int8 ones (models/layers.py
+    QuantConv; "int8_static" needs `models/quant.calibrate`). The
     parameters are drawn as flax draws them (`layers.init_params`) on the
     CPU from a generator seeded with `seed`, so they do not depend on the
     device. `device` defaults to CUDA and raises without it; the CPU runs
@@ -64,11 +66,11 @@ def build_detector(
         # MobileNet taps 3 maps (strides 8/16/32), VGG 2 (conv4_3, fc7); the
         # extra stages make the rest of the pyramid
         model = SSDDetector(backbone, config.feature_maps, config.num_classes,
-                            dtype)
+                            dtype, config.quant)
         anchors = anchor_ops.ssd_anchors(config.feature_maps)
     elif config.head == "yolo":
         model = YOLODetector(backbone, [len(p) for p in config.yolo_priors],
-                             config.num_classes, dtype)
+                             config.num_classes, dtype, config.quant)
         anchors = anchor_ops.yolo_anchors(config.yolo_grids, config.yolo_priors)
         cell_sizes = anchor_ops.yolo_cell_sizes(
             config.yolo_grids, config.yolo_priors).to(device)

@@ -1,6 +1,8 @@
 """MobileNetV1 backbone with SSD feature taps (mirror of
 bdd100k_tpu/models/mobilenet.py). Stride-1 depthwise layers: ds1, ds3,
-ds5, ds7–ds11 and ds13; stride 2: ds2, ds4, ds6 and ds12."""
+ds5, ds7–ds11 and ds13; stride 2: ds2, ds4, ds6 and ds12. In the int8
+modes the blocks' pointwise convs quantize; the stem stays in the working
+type, as the reference keeps it."""
 
 from __future__ import annotations
 
@@ -29,12 +31,14 @@ class MobileNetBackbone(nn.Module):
     """Returns taps at strides (8, 16, 32): (256, 512, 1024) channels at
     width 1.0."""
 
-    def __init__(self, width: float = 1.0, dtype=torch.bfloat16):
+    def __init__(self, width: float = 1.0, dtype=torch.bfloat16,
+                 quant: str = "none"):
         super().__init__()
         ch = _w(32, width)
         self.stem = ConvBN(3, ch, 3, 2, dtype=dtype)
         for name, out, stride in _BLOCKS:
-            setattr(self, name, DepthwiseSeparable(ch, _w(out, width), stride, dtype))
+            setattr(self, name, DepthwiseSeparable(ch, _w(out, width), stride,
+                                                   dtype, quant))
             ch = _w(out, width)
         self.tap_channels = tuple(
             _w(out, width) for name, out, _ in _BLOCKS if name in _TAPS

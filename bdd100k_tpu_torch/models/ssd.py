@@ -1,5 +1,6 @@
 """SSD multibox heads and detector assembly (mirror of
-bdd100k_tpu/models/ssd.py)."""
+bdd100k_tpu/models/ssd.py). In the int8 modes the extra stages quantize
+and the multibox heads stay in the working type."""
 
 from __future__ import annotations
 
@@ -35,13 +36,14 @@ class ExtraFeatureStage(nn.Module):
     """1×1 squeeze + 3×3 downsample conv producing the next pyramid map."""
 
     def __init__(self, in_ch, mid, out, cur_size, target_size,
-                 dtype=torch.bfloat16):
+                 dtype=torch.bfloat16, quant="none"):
         super().__init__()
-        self.squeeze = ConvBN(in_ch, mid, 1, dtype=dtype)
+        self.squeeze = ConvBN(in_ch, mid, 1, dtype=dtype, quant=quant)
         if target_size == -(-cur_size // 2):        # halve: 3×3 s2 SAME
-            self.down = ConvBN(mid, out, 3, 2, dtype=dtype)
+            self.down = ConvBN(mid, out, 3, 2, dtype=dtype, quant=quant)
         elif target_size == cur_size - 2:           # e.g. 3→1: 3×3 VALID
-            self.down = ConvBN(mid, out, 3, 1, padding="VALID", dtype=dtype)
+            self.down = ConvBN(mid, out, 3, 1, padding="VALID", dtype=dtype,
+                               quant=quant)
         else:
             raise ValueError(f"can't reach map size {target_size} from {cur_size}")
 
@@ -54,7 +56,8 @@ class SSDDetector(nn.Module):
     returns loc (B, A, 4) and conf (B, A, C+1) logits in f32."""
 
     def __init__(self, backbone: nn.Module, feature_maps: Sequence[FeatureMapSpec],
-                 num_classes: int = 10, dtype=torch.bfloat16):
+                 num_classes: int = 10, dtype=torch.bfloat16,
+                 quant: str = "none"):
         super().__init__()
         self.backbone = backbone
         self.feature_maps = tuple(feature_maps)
@@ -65,7 +68,8 @@ class SSDDetector(nn.Module):
             mid, out = (256, 512) if i == 0 else (128, 256)
             self.add_module(
                 f"extra{i + 1}",
-                ExtraFeatureStage(chans[-1], mid, out, cur, fm.size, dtype),
+                ExtraFeatureStage(chans[-1], mid, out, cur, fm.size, dtype,
+                                  quant),
             )
             chans.append(out)
             cur = fm.size

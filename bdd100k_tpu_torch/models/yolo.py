@@ -1,8 +1,9 @@
 """YOLO-style multi-scale detection head (mirror of
 bdd100k_tpu/models/yolo.py).
 
-One head a backbone tap (strides 8, 16, 32): a 3×3 ConvBN to 256 channels,
-then a 1×1 conv with bias to k·(5 + C) channels, reshaped to (B, H·W·k,
+One head a backbone tap (strides 8, 16, 32): a 3×3 ConvBN to 256 channels
+(quantized in the int8 modes), then a 1×1 conv with bias (which stays in
+the working type) to k·(5 + C) channels, reshaped to (B, H·W·k,
 5 + C) in the (scale, row, col, prior) order of `ops.anchors.yolo_anchors`.
 Columns 0–3 are (tx, ty, tw, th); column 4 is the objectness logit and the
 rest the class logits, which postprocess scores as sigmoid(obj)·sigmoid(cls).
@@ -24,10 +25,11 @@ class YOLOHead(nn.Module):
     """Detection head for one scale: 3×3 ConvBN → 1×1 conv → k×(5+C)."""
 
     def __init__(self, in_ch: int, num_priors: int, num_classes: int,
-                 mid_channels: int = 256, dtype=torch.bfloat16):
+                 mid_channels: int = 256, dtype=torch.bfloat16,
+                 quant: str = "none"):
         super().__init__()
         self.num_classes = num_classes
-        self.conv = ConvBN(in_ch, mid_channels, 3, dtype=dtype)
+        self.conv = ConvBN(in_ch, mid_channels, 3, dtype=dtype, quant=quant)
         self.out = Conv(mid_channels, num_priors * (5 + num_classes), 1,
                         bias=True, dtype=dtype)
 
@@ -45,7 +47,8 @@ class YOLODetector(nn.Module):
     f32."""
 
     def __init__(self, backbone: nn.Module, priors_per_scale: Sequence[int],
-                 num_classes: int = 10, dtype=torch.bfloat16):
+                 num_classes: int = 10, dtype=torch.bfloat16,
+                 quant: str = "none"):
         super().__init__()
         self.backbone = backbone
         self.priors_per_scale = tuple(priors_per_scale)
@@ -55,7 +58,8 @@ class YOLODetector(nn.Module):
                 f"{len(self.priors_per_scale)} scales")
         for i, (ch, k) in enumerate(zip(backbone.tap_channels,
                                         self.priors_per_scale)):
-            self.add_module(f"head{i}", YOLOHead(ch, k, num_classes, dtype=dtype))
+            self.add_module(f"head{i}", YOLOHead(ch, k, num_classes,
+                                                 dtype=dtype, quant=quant))
 
     def forward(self, images: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         taps = self.backbone(images.permute(0, 3, 1, 2))

@@ -7,9 +7,10 @@ port's JPEG decoder `csrc/jpeg/jdecode.cc` (libjpeg's API subset, giving
 libjpeg-turbo's pixels bit for bit) rather than a system libjpeg, on every
 machine: the card's machine has no libjpeg, and one decoder everywhere
 keeps the pixels the same wherever the port runs. The same library holds
-`csrc/jpeg/jfull.cc`, the full-resolution decode of one JPEG, and
+`csrc/jpeg/jfull.cc`, the full-resolution decode of one JPEG,
 `csrc/resample.cc`, PIL's default `Image.resize` (floating point without
-fused multiply-adds, as Pillow's own build computes its weights).
+fused multiply-adds, as Pillow's own build computes its weights), and
+`csrc/png.cc`, the PNG decoder's scanline unfiltering.
 
 One g++ call builds the sources into `bdd100k_tpu_torch/_build/`, keyed by
 a hash of the sources, the header and the flags, at first use. A failed
@@ -31,7 +32,7 @@ from bdd100k_tpu_torch.utils.cuda_build import BUILD_DIR, CSRC
 
 ROOT = CSRC.parent.parent
 SOURCES = (ROOT / "native" / "decode_pool.cc", CSRC / "jpeg" / "jdecode.cc",
-           CSRC / "jpeg" / "jfull.cc", CSRC / "resample.cc")
+           CSRC / "jpeg" / "jfull.cc", CSRC / "resample.cc", CSRC / "png.cc")
 HEADERS = (CSRC / "jpeg" / "jpeglib.h",)
 FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread", "-ffp-contract=off",
          "-I", str(CSRC / "jpeg")]
@@ -49,10 +50,13 @@ SIGNATURES = {
     "dp_resize_yuv420_batch": ([_P, _I, _P, _I, _I, _I, _P, _P], ctypes.c_int),
     # jpeg, len (long), &h, &w (jfull.cc)
     "jd_image_size": ([ctypes.c_char_p, ctypes.c_long, _P, _P], ctypes.c_int),
-    # jpeg, len (long), h, w, out
-    "jd_decode_rgb": ([ctypes.c_char_p, ctypes.c_long, _I, _I, _P], ctypes.c_int),
+    # jpeg, len (long), scale denominator, h, w, out
+    "jd_decode_rgb": ([ctypes.c_char_p, ctypes.c_long, _I, _I, _I, _P],
+                      ctypes.c_int),
     # src, n, h, w, c, out_h, out_w, out (resample.cc)
     "rs_resize_bicubic": ([_P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
+    # filtered rows, rows, stride, bytes a pixel, out (png.cc)
+    "png_unfilter": ([ctypes.c_char_p, _I, _I, _I, _P], ctypes.c_int),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -98,6 +98,35 @@ def flax_from_state_dict(
     return params, stats
 
 
+def quant_state_from_flax(quant: Any) -> dict[str, torch.Tensor]:
+    """The reference's `quant` collection (nested or flat '/'-joined: each
+    static-int8 layer's `act_amax`, and `out_amax` where it emits codes) →
+    the port's quant state, {"<module path>.act_amax": f32 scalar}
+    (`models/quant.load_quant_state` sets it on a model). The params are
+    the same in every quant mode, so nothing else changes."""
+    out = {}
+    for path, arr in _flatten(quant).items():
+        *mods, leaf = path.split("/")
+        if leaf not in ("act_amax", "out_amax"):
+            raise ValueError(f"unmapped quant leaf {leaf!r} at {path!r}")
+        out[".".join(mods + [leaf])] = torch.tensor(float(arr),
+                                                    dtype=torch.float32)
+    return out
+
+
+def flax_from_quant_state(state: Mapping[str, torch.Tensor]) -> dict:
+    """The inverse: the port's quant state → the reference's nested
+    `quant` collection of f32 numpy scalars."""
+    tree: dict = {}
+    for key, t in state.items():
+        *mods, leaf = key.split(".")
+        node = tree
+        for m in mods:
+            node = node.setdefault(m, {})
+        node[leaf] = np.asarray(t.detach().cpu(), np.float32)
+    return tree
+
+
 def read_detector_npz(path: str | Path) -> tuple[dict, dict, dict]:
     """→ (flat params, flat batch_stats, meta), keys relative to their
     collection, dtypes as stored."""

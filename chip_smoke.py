@@ -34,7 +34,18 @@ VGG16-SSD512 seeded from a torchvision-layout .pth; the weights exporter
 on the first run (its artifact equal to the EMA shadow in fp16) and an
 f32 eval of that artifact; progressive JPEGs and PIL's bicubic resize of
 non-720p frames held to the reference's sha256s in
-`tests/fixtures/decode_repairs/ref_sha256.json`.
+`tests/fixtures/decode_repairs/ref_sha256.json`. Then int8 quant: six
+quantized layers on the card against the CPU route (codes, int32
+accumulators, outputs bit-equal), the int8 conv route's times beside
+cuDNN's bf16 conv for every quantized layer of VGG16-SSD512 at B=32 and
+SSD300 at B=8, the int8 evals of SSD300 (int8, int8_static) and
+VGG16-SSD512 (int8_static, the requant pipeline) against the JAX fixture
+`tests/fixtures/torch_ref_eval_int8.npz` in f32 and bf16, with the
+depthwise and NMS kernels held to their plain versions on that path,
+int8_static serving beside bf16, the serving CLI with --calib_images of
+JPEGs and PNGs against the reference CLI's lines, the PNG decoder against
+PIL's sha256s, and progressive JPEGs cut before their last scans against
+the reference pool's smoothed decodes.
 Each path is checked to have run through its kernels and to give the
 right output. NMS and the matcher are also held bit-equal at the edges of
 what they take (K from 1 to 256, greedy-trap chains; zero-area and
@@ -2061,26 +2072,27 @@ CLI_TIE = 2e-3            # a score this close to the threshold may cross it
 FULL_RES_PASSES = 5
 
 
-def cli_lines_agree(got: dict, want: dict, names: list[str]) -> list[str]:
+def cli_lines_agree(got: dict, want: dict, names: list[str],
+                    tol: float = CLI_LINE_TOL, tie: float = CLI_TIE) -> list[str]:
     """Per image, each line of one side has a line of the other of its
-    class with score and corners within CLI_LINE_TOL; a line left over
-    must sit within CLI_TIE of the threshold (a near-tie there, named in
-    the result) → the near-ties."""
+    class with score and corners within `tol`; a line left over must sit
+    within `tie` of the threshold (a near-tie there, named in the result)
+    → the near-ties."""
     ties = []
     for name in names:
         left = list(want.get(name, []))
         extra = []
         for cls, score, box in got.get(name, []):
             hit = [j for j, (c, s, b) in enumerate(left) if c == cls
-                   and abs(s - score) <= CLI_LINE_TOL
-                   and max(abs(p - q) for p, q in zip(b, box)) <= CLI_LINE_TOL]
+                   and abs(s - score) <= tol
+                   and max(abs(p - q) for p, q in zip(b, box)) <= tol]
             if hit:
                 left.pop(hit[0])
             else:
                 extra.append(("port", cls, score))
         extra += [("reference", c, s) for c, s, _ in left]
         for side, cls, score in extra:
-            if abs(score - CLI_THRESHOLD) > CLI_TIE:
+            if abs(score - CLI_THRESHOLD) > tie:
                 raise AssertionError(f"{name}: {side} line {cls} {score} has no "
                                      "counterpart")
             ties.append(f"{name}: {side} {cls} {score}")
@@ -2651,6 +2663,539 @@ def run_files_phases(torch, nms, dw, matcher, nproc: int) -> dict:
     return dict(files=files, full=full, vgg=vgg, export=export)
 
 
+# ------------------------------------------------------------------ int8
+
+INT8_FIXTURE = ROOT / "tests" / "fixtures" / "torch_ref_eval_int8.npz"
+CALIB_DIR = ROOT / "tests" / "fixtures" / "calib_mixed"
+PNG_DIR = ROOT / "tests" / "fixtures" / "png"
+# the int8 evals at b32, each against its fixture entry: (config, quant,
+# artifact, JPEGs); the reference's VGG512 fixture covers the first 8
+INT8_EVALS = ((CONFIG, "int8", ARTIFACT, EVAL_SCENES),
+              (CONFIG, "int8_static", ARTIFACT, EVAL_SCENES),
+              (VGG_CONFIG, "int8_static", VGG_ARTIFACT, 8))
+INT8_CONFIDENT = 0.4   # the fixture gate's confident detections
+# their scores and corners, card against the CPU fixture: the frameworks'
+# f32 sums flip a few codes and the flips cascade (up to 0.0175 measured
+# between the port and the reference on the CPU,
+# tests/test_torch_quant_eval.py); the CLI's int8 lines likewise
+INT8_DET_TOL = 0.02
+# VGG512's 8 images: the port's own mAP moves by 0.010 under 2 ulps of
+# input noise (tests/test_torch_quant_eval.py), added to its tolerances
+VGG_SUBSET_SPREAD = 0.010
+INT8_TIMING_REPS = 3   # event-timed calls per layer in the int8 conv table
+
+
+def int8_key(config: str, quant: str, n: int) -> str:
+    return f"{config}_{quant}_{n}"
+
+
+def event_ms(torch, fn, reps: int = INT8_TIMING_REPS) -> float:
+    """Median device time of `fn` over `reps` calls after one warm-up,
+    each between two CUDA events (for calls that allocate, which a graph
+    capture would not take)."""
+    fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def quant_conv_from(torch, sd: dict, name: str, **kw):
+    """A QuantConv (f32) with the artifact's weights of module `name`."""
+    from bdd100k_tpu_torch.models.layers import QuantConv
+
+    w = sd[f"{name}.weight"]
+    o, i, k, _ = w.shape
+    layer = QuantConv(i, o, k, bias=f"{name}.bias" in sd, dtype=torch.float32, **kw)
+    with torch.no_grad():
+        layer.weight.copy_(w)
+        if layer.bias is not None:
+            layer.bias.copy_(sd[f"{name}.bias"])
+    return layer
+
+
+def to_cuda(x):
+    from bdd100k_tpu_torch.models.layers import Int8Act
+
+    if isinstance(x, Int8Act):
+        return Int8Act(*(None if t is None else t.cuda() for t in x))
+    return x.cuda()
+
+
+def phase_quant_layers(torch) -> dict:
+    """Four quantized layers on the card against the same layers on the
+    CPU over the same input: the codes, the int32 accumulators and the
+    f32 outputs (or emitted codes) equal. SSD300's ds13 pointwise conv
+    (dynamic and static, B=8), VGG512's block2 conv1 (K=576, static, emits
+    codes), fc6 (dilation 6, on int8 codes, emits) and SSD300's last extra
+    stage at b1 (a 1×1 conv on a 3×3 map, M=9, and a 3×3 VALID conv to
+    1×1, M=1: `_int_mm`'s padded shapes)."""
+    from bdd100k_tpu_torch.models.layers import Int8Act, _R127
+    from bdd100k_tpu_torch.utils.weights import load_detector_npz
+
+    ssd, _ = load_detector_npz(ARTIFACT)
+    vgg, _ = load_detector_npz(VGG_ARTIFACT)
+    g = torch.Generator().manual_seed(11)
+
+    def act(*shape, hi=4.0):
+        return torch.rand(*shape, generator=g) * hi
+
+    codes = torch.randint(0, 128, (2, 512, 32, 32), generator=g).to(torch.int8)
+    out_max = torch.tensor(6.35)
+    cases = {
+        "ssd300_ds13_pw_dynamic": (ssd, "backbone.ds13.pw.Conv_0", dict(),
+                                   act(8, 1024, 10, 10, hi=6.0)),
+        "ssd300_ds13_pw_static": (ssd, "backbone.ds13.pw.Conv_0",
+                                  dict(static_act=True), act(8, 1024, 10, 10, hi=6.0)),
+        "vgg512_block2_conv1_emit": (vgg, "backbone.block2.conv1",
+                                     dict(static_act=True, emit_int8=True),
+                                     act(2, 64, 256, 256)),
+        "vgg512_fc6_dilated_emit": (vgg, "backbone.fc6",
+                                    dict(static_act=True, emit_int8=True, dilation=6),
+                                    Int8Act(codes, out_max * _R127, out_max)),
+        "ssd300_extra3_squeeze_b1": (ssd, "extra3.squeeze.Conv_0",
+                                     dict(static_act=True), act(1, 256, 3, 3, hi=6.0)),
+        "ssd300_extra3_down_valid_b1": (ssd, "extra3.down.Conv_0",
+                                        dict(static_act=True, padding="VALID"),
+                                        act(1, 128, 3, 3, hi=6.0)),
+    }
+    rows = {}
+    for name, (sd, module, kw, x) in cases.items():
+        cpu = quant_conv_from(torch, sd, module, **kw)
+        if cpu.static_act:  # calibrate on the CPU: both maxima from this input
+            xf = x if not isinstance(x, Int8Act) else x.codes.float() * x.scale
+            cpu.calibrating = True
+            with torch.inference_mode():
+                cpu(xf)
+            cpu.calibrating = False
+        gpu = quant_conv_from(torch, sd, module, **kw).cuda()
+        gpu.load_state_dict(cpu.state_dict())
+        for buf in ("act_amax", "out_amax"):
+            if hasattr(cpu, buf):
+                getattr(gpu, buf).copy_(getattr(cpu, buf))
+        with torch.inference_mode():
+            xq_c, s_c = cpu.quantize_input(x)
+            xq_g, s_g = gpu.quantize_input(to_cuda(x))
+            acc_c, sc_c = cpu.accumulate(x)
+            acc_g, sc_g = gpu.accumulate(to_cuda(x))
+            out_c, out_g = cpu(x), gpu(to_cuda(x))
+        emitted = isinstance(out_c, Int8Act)
+        oc = out_c.codes if emitted else out_c
+        og = (out_g.codes if emitted else out_g).cpu()
+        row = dict(
+            module=module, input=list((x.codes if isinstance(x, Int8Act) else x).shape),
+            acc_shape=list(acc_c.shape), k=int(cpu.weight[0].numel()),
+            m=int(acc_c.shape[0] * acc_c.shape[2] * acc_c.shape[3]),
+            codes_equal=bool(torch.equal(xq_c, xq_g.cpu())),
+            scale_equal=bool(torch.equal(sc_c, sc_g.cpu())),
+            acc_equal=bool(torch.equal(acc_c, acc_g.cpu())),
+            max_abs_acc=int(acc_c.abs().max()),
+            output="codes" if emitted else "f32",
+            output_equal=bool(torch.equal(oc, og)),
+            output_max_abs_err=float((oc.float() - og.float()).abs().max()))
+        if emitted:
+            row["emit_scale_equal"] = float(out_c.scale) == float(out_g.scale)
+        rows[name] = row
+    bad = [n for n, r in rows.items()
+           if not all(v for k, v in r.items() if k.endswith("_equal"))]
+    emit("quant_layers", layers=rows, all_equal=not bad)
+    if bad:
+        raise AssertionError(f"quantized layers differ from the CPU: {bad}")
+    return rows
+
+
+def quant_layer_shapes(torch, config: str, batch: int) -> list[tuple]:
+    """(name, input NCHW shape, module) of every QuantConv in one int8
+    forward of `config` at `batch` (zeros: only the shapes count)."""
+    import dataclasses
+
+    from bdd100k_tpu_torch.configs import get_config
+    from bdd100k_tpu_torch.models.detector import build_detector
+    from bdd100k_tpu_torch.models.layers import Int8Act, QuantConv
+
+    cfg = dataclasses.replace(get_config(config), quant="int8")
+    bundle = build_detector(cfg, dtype=torch.bfloat16, device="cuda")
+    seen = []
+    hooks = []
+    for name, m in bundle.model.named_modules():
+        if isinstance(m, QuantConv):
+            def pre(mod, args, name=name):
+                x = args[0]
+                x = x.codes if isinstance(x, Int8Act) else x
+                seen.append((name, tuple(x.shape), mod))
+            hooks.append(m.register_forward_pre_hook(pre))
+    s = cfg.image_size
+    with torch.inference_mode():
+        bundle.model(torch.zeros(batch, s, s, 3, device="cuda"))
+    for h in hooks:
+        h.remove()
+    return seen
+
+
+def phase_int8_conv_times(torch) -> dict:
+    """Each quantized layer of VGG16-SSD512 at B=32 and SSD300 at B=8: the
+    int8 route (`int8_conv2d`: the unfold and `_int_mm`), `_int_mm` alone
+    on the unfolded matrix, and cuDNN's bf16 conv of the same layer
+    (channels_last, the working type's route), each the median of
+    INT8_TIMING_REPS event-timed calls → the table and its sums."""
+    import torch.nn.functional as F
+
+    from bdd100k_tpu_torch.ops.depthwise import same_pads
+    from bdd100k_tpu_torch.ops.int8_conv import int8_conv2d, int_mm, weight_matrix
+
+    table = {}
+    for config, batch in ((VGG_CONFIG, EVAL_BATCH), (CONFIG, 8)):
+        rows = []
+        for name, shape, mod in quant_layer_shapes(torch, config, batch):
+            b, c, h, w = shape
+            x_q = torch.randint(0, 128, shape, device="cuda", dtype=torch.int8)
+            x_q = x_q.contiguous(memory_format=torch.channels_last)
+            w_q, _ = mod.quantized_weight()
+            o, _, k, _ = w_q.shape
+            route_ms = event_ms(torch, lambda: int8_conv2d(
+                x_q, w_q, mod.stride, mod.padding, mod.dilation))
+            acc = int8_conv2d(x_q, w_q, mod.stride, mod.padding, mod.dilation)
+            m_rows = acc.shape[0] * acc.shape[2] * acc.shape[3]
+            del acc
+            kk = k * k * c
+            a = torch.randint(-127, 128, (m_rows, kk), device="cuda", dtype=torch.int8)
+            wm = weight_matrix(w_q)
+            mm_ms = event_ms(torch, lambda: int_mm(a, wm))
+            del a
+            xb = x_q.to(torch.bfloat16)
+            wb = mod.weight.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+            pad = (0, 0, 0, 0)
+            if mod.padding == "SAME":
+                ke = (k - 1) * mod.dilation + 1
+                ph, pw = same_pads(h, ke, mod.stride), same_pads(w, ke, mod.stride)
+                pad = (pw[0], pw[1], ph[0], ph[1])
+            if pad[0] == pad[1] and pad[2] == pad[3]:
+                conv = lambda: F.conv2d(xb, wb, None, mod.stride, (pad[2], pad[0]),
+                                        mod.dilation)
+            else:
+                conv = lambda: F.conv2d(F.pad(xb, pad), wb, None, mod.stride, 0,
+                                        mod.dilation)
+            cudnn_ms = event_ms(torch, conv)
+            del xb
+            rows.append(dict(layer=name, input=list(shape), kernel=k,
+                             stride=mod.stride, dilation=mod.dilation,
+                             padding=mod.padding, m=m_rows, k=kk, n=o,
+                             int8_route_ms=route_ms, int_mm_ms=mm_ms,
+                             bf16_cudnn_ms=cudnn_ms))
+        torch.cuda.empty_cache()
+        table[f"{config}_b{batch}"] = dict(
+            layers=rows, sum_int8_route_ms=sum(r["int8_route_ms"] for r in rows),
+            sum_int_mm_ms=sum(r["int_mm_ms"] for r in rows),
+            sum_bf16_cudnn_ms=sum(r["bf16_cudnn_ms"] for r in rows))
+    emit("int8_conv_times", reps=INT8_TIMING_REPS, **table)
+    return {k: {kk: v for kk, v in t.items() if kk != "layers"}
+            for k, t in table.items()}
+
+
+def phase_eval_int8(torch, nms, dw, nproc: int, dtype_name: str) -> dict:
+    """`run_eval` of the int8 models on the card at b32: SSD300 int8 and
+    int8_static over the 64 JPEGs, VGG16-SSD512 int8_static (the requant
+    pipeline) over the first 8, each int8_static model calibrated as the
+    CLI calibrates (the eval set's head), against the reference's f32 CPU
+    fixture. In f32 (TF32
+    off) the mAP@0.5 stays within EVAL_F32_MAP_TOL and the confident
+    detections (score ≥ 0.4) agree both ways within INT8_DET_TOL; in bf16
+    within EVAL_BF16_MAP_TOL (VGG512's 8 images: plus VGG_SUBSET_SPREAD). On the int8 path the NMS kernel's keep masks
+    equal the plain greedy's on the path's own candidates, and (f32) the
+    depthwise kernel is held to its plain version on the path's own
+    inputs of the first batch; the launches are counted."""
+    import dataclasses
+
+    from bdd100k_tpu_torch import evaluate
+    from bdd100k_tpu_torch.configs import get_config
+    from bdd100k_tpu_torch.models.detector import build_detector
+    from bdd100k_tpu_torch.utils.device import strict_f32
+    from bdd100k_tpu_torch.utils.weights import restore_eval_weights
+
+    phase = f"eval_int8_{'f32' if dtype_name == 'float32' else 'bf16'}"
+    dtype = torch.float32 if dtype_name == "float32" else torch.bfloat16
+    base_tol = EVAL_F32_MAP_TOL if dtype_name == "float32" else EVAL_BF16_MAP_TOL
+    fx = np.load(INT8_FIXTURE)
+    rows = {}
+    for config, quant, artifact, n in INT8_EVALS:
+        key = int8_key(config, quant, n)
+        tol = base_tol + (VGG_SUBSET_SPREAD if n < EVAL_SCENES else 0.0)
+        cfg = dataclasses.replace(get_config(config), quant=quant)
+        dets, captures, dw_inputs = [], [], []
+        make_step, suppress, dw_route = (evaluate.make_eval_step,
+                                         nms.greedy_suppress, dw.depthwise3x3_s1)
+
+        def recording_step(b):
+            step = make_step(b)
+
+            def run(images):
+                dets.append(step(images))
+                return dets[-1]
+            return run
+
+        def recording_suppress(boxes, valid, iou_threshold):
+            keep = suppress(boxes, valid, iou_threshold)
+            captures.append(dict(boxes=boxes, valid=valid, keep=keep,
+                                 iou_threshold=iou_threshold))
+            return keep
+
+        def recording_dw(x, k):
+            if len(dw_inputs) < dw_layers(config):
+                dw_inputs.append((x, k))
+            return dw_route(x, k)
+
+        with strict_f32(dtype_name == "float32"):
+            bundle = build_detector(cfg, dtype=dtype, device="cuda")
+            restore_eval_weights(bundle.model, artifact, expect_config=config)
+            dataset = evaluate.load_dataset(types.SimpleNamespace(
+                synthetic=n, synthetic_dir=str(SYNTH_DIR), max_boxes=100),
+                cfg.image_size)
+            args = types.SimpleNamespace(
+                batch_size=EVAL_BATCH, num_workers=nproc, wire="rgb",
+                iou_threshold=0.5, coco_map=False, dump_detections=None,
+                calib_images=None, calib_batches=8)
+            torch.cuda.synchronize()
+            nms.LAUNCHES["greedy_suppress"] = 0
+            dw.LAUNCHES["depthwise3x3_s1"] = 0
+            evaluate.make_eval_step = recording_step
+            nms.greedy_suppress, dw.depthwise3x3_s1 = recording_suppress, recording_dw
+            try:
+                t0 = time.perf_counter()
+                result = evaluate.run_eval(bundle, dataset, args)
+                wall = time.perf_counter() - t0
+            finally:
+                evaluate.make_eval_step = make_step
+                nms.greedy_suppress, dw.depthwise3x3_s1 = suppress, dw_route
+            launches = dict(greedy_suppress=nms.LAUNCHES["greedy_suppress"],
+                            depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"])
+            batches = -(-n // EVAL_BATCH)
+            # int8_static calibrates first: up to 8 batches of 8
+            forwards = batches + (-(-min(n, 64) // 8) if quant == "int8_static" else 0)
+            if launches != dict(greedy_suppress=batches,
+                                depthwise3x3_s1=dw_layers(config) * forwards):
+                raise AssertionError(f"{phase} {key} launches {launches}")
+            for cap in captures:
+                want = nms.greedy_keep_mask(cap["boxes"].cpu(), cap["valid"].cpu(),
+                                            cap["iou_threshold"])
+                if not torch.equal(cap["keep"].cpu(), want):
+                    raise AssertionError(f"{phase} {key}: NMS keep mask differs")
+            dw_err = None
+            if dtype_name == "float32" and dw_inputs:
+                dw_err = max(check_dw_forward(torch, dw, x.float(), k.float(),
+                                              f"{key} layer {i}")[0]
+                             for i, (x, k) in enumerate(dw_inputs))
+        det = types.SimpleNamespace(**{
+            f: torch.cat([getattr(d, f) for d in dets]).cpu().numpy()[:n]
+            for f in ("boxes", "scores", "classes", "valid")})
+        want = types.SimpleNamespace(**{f: fx[f"{key}/{f}"] for f in
+                                        ("boxes", "scores", "classes", "valid")})
+        if det.boxes.shape != (n, 200, 4) or not np.isfinite(det.boxes).all():
+            raise AssertionError(f"{phase} {key}: bad detections")
+        map_diff = result["mAP"] - float(fx[f"{key}/map50"])
+        row = dict(config=config, quant=quant, weights=artifact.name, scenes=n,
+                   map50=result["mAP"], fixture_map50=float(fx[f"{key}/map50"]),
+                   map50_diff=map_diff, map50_tol=tol, launches=launches,
+                   nms_keep_bits_equal_in_path=True,
+                   depthwise_in_path_max_abs_err=dw_err, wall_s=wall,
+                   images_per_sec=result["images_per_sec"],
+                   calib_images_used=result.get("calib_images_used"))
+        if quant == "int8_static":
+            from bdd100k_tpu_torch.models.quant import quant_state
+
+            names = [s.decode() for s in fx[f"{key}/quant_names"]]
+            state = quant_state(bundle.model)
+            rel = [abs(float(state[n]) - float(v)) / float(v)
+                   for n, v in zip(names, fx[f"{key}/quant_values"])]
+            row["calib_max_rel_diff_vs_fixture"] = max(rel)
+        if dtype_name == "float32":
+            confident_agree(want, det, n, thr=INT8_CONFIDENT, tol=INT8_DET_TOL)
+            confident_agree(det, want, n, thr=INT8_CONFIDENT + 0.01, tol=INT8_DET_TOL)
+            row["confident_detections_agree"] = True
+        rows[key] = row
+        if not abs(map_diff) <= tol:
+            emit(phase, **rows)
+            raise AssertionError(f"{phase} {key}: mAP {result['mAP']} is {map_diff} "
+                                 "from the fixture's")
+        del bundle
+        torch.cuda.empty_cache()
+    emit(phase, batch=EVAL_BATCH, **rows)
+    return rows
+
+
+INT8_SERVE = {"ssd300_b1": (CONFIG, ARTIFACT, 1, 64), "ssd300_b8": (CONFIG, ARTIFACT, 8, 32),
+              "vgg512_b32": (VGG_CONFIG, VGG_ARTIFACT, EVAL_BATCH, 8)}
+INT8_SERVE_WARMUP = 3
+
+
+def phase_path_int8(torch, infer, nms, dw, frames) -> dict:
+    """Serving in int8_static through `load_predictor(quant="int8_static",
+    calib_images=...)` (calibrated on tests/fixtures/calib_mixed, JPEGs and
+    PNGs, when the predictor is built), beside the bf16 predictor of the
+    same config in the same run: SSD300 at b1 and b8, VGG16-SSD512 at b32,
+    on 720p frames resized on the card. The int8 requests are the path's
+    counted run (counts to 0 before, read after) → launches and rows."""
+    rows, launches = {}, dict(greedy_suppress=0, depthwise3x3_s1=0)
+    for name, (config, artifact, bs, n) in INT8_SERVE.items():
+        requests = [np.take(frames, range(bs * r, bs * r + bs), axis=0, mode="wrap")
+                    for r in range(n)]
+        row = {}
+        for mode in ("bf16", "int8_static"):
+            kw = dict(quant="int8_static", calib_images=CALIB_DIR) \
+                if mode != "bf16" else {}
+            pred = infer.load_predictor(config, artifact, batch_size=bs,
+                                        device="cuda", **kw)
+            for r in requests[:INT8_SERVE_WARMUP]:
+                pred(r)
+            torch.cuda.synchronize()
+            if mode != "bf16":
+                nms.LAUNCHES["greedy_suppress"] = 0
+                dw.LAUNCHES["depthwise3x3_s1"] = 0
+            lat, outs = [], []
+            for r in requests:
+                t0 = time.perf_counter()
+                outs.append(pred(r))
+                lat.append((time.perf_counter() - t0) * 1e3)
+            if mode != "bf16":
+                got = dict(greedy_suppress=nms.LAUNCHES["greedy_suppress"],
+                           depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"])
+                if got != dict(greedy_suppress=n, depthwise3x3_s1=dw_layers(config) * n):
+                    raise AssertionError(f"path_int8 {name} launches {got}")
+                for k in launches:
+                    launches[k] += got[k]
+            for det in outs:
+                if not (np.isfinite(det.boxes).all() and det.valid.any()):
+                    raise AssertionError(f"path_int8 {name} {mode}: bad detections")
+            row[mode] = latency_stats(lat, [t / 1e3 for t in lat], bs)
+            del pred
+            torch.cuda.empty_cache()
+        row["int8_over_bf16_p50"] = row["int8_static"]["p50_ms"] / row["bf16"]["p50_ms"]
+        rows[name] = row
+    emit("path_int8", calib_dir=str(CALIB_DIR.relative_to(ROOT)), launches=launches,
+         frame="720x1280 uint8 rgb", **rows)
+    return dict(rows, launches=launches)
+
+
+def phase_infer_cli_int8() -> dict:
+    """`python -m bdd100k_tpu_torch.infer --quant int8_static
+    --calib_images tests/fixtures/calib_mixed` (two JPEGs, three PNGs)
+    over the 64 JPEGs at b32 in f32: its lines equal the reference CLI's
+    f32 lines in the fixture's "int8" part."""
+    import os
+
+    from bdd100k_tpu_torch import infer
+
+    ref = json.loads(CLI_FIXTURE.read_text())["int8"]
+    names = jpeg_names()
+    logs = RUNS / "infer_cli"
+    logs.mkdir(parents=True, exist_ok=True)
+    stdout, wall = run_cli(["--config", CONFIG, "--ckpt_dir", os.path.relpath(ARTIFACT),
+                            "--image_dir", os.path.relpath(SYNTH_DIR / "images" / "val"),
+                            "--batch_size", str(EVAL_BATCH), "--dtype", "float32",
+                            "--quant", "int8_static",
+                            "--calib_images", os.path.relpath(CALIB_DIR)],
+                           logs / "int8_static_calib_mixed_f32.txt")
+    if "calibrated act scales on 8 frames" not in stdout:
+        raise AssertionError("the CLI did not calibrate on the 8 frames")
+    cli_rate(stdout, len(names))
+    got = infer.parse_detection_lines(stdout)
+    ties = cli_lines_agree(got, infer.parse_detection_lines(
+        "\n".join(ref["dir_int8_static"])), names, tol=INT8_DET_TOL, tie=INT8_DET_TOL)
+    row = dict(lines=sum(map(len, got.values())),
+               fixture_lines=len(ref["dir_int8_static"]), near_ties=ties, wall_s=wall)
+    emit("infer_cli_int8", config=CONFIG, calib_dir=str(CALIB_DIR.relative_to(ROOT)),
+         **row)
+    return row
+
+
+def phase_png_decode() -> dict:
+    """The committed PNGs (every colour type and depth, tRNS, Adam7, all
+    five filters) through `decode_png`, each sha256 equal to PIL's
+    convert("RGB") in the fixture; and the decode time of a 720p frame the
+    port's own PNG writer wrote."""
+    from bdd100k_tpu_torch.data.png import decode_png
+    from bdd100k_tpu_torch.data.synthetic import generate_synthetic_scenes
+    from bdd100k_tpu_torch.utils.viz import write_png
+
+    want = json.loads((PNG_DIR / "pil_sha256.json").read_text())
+    bad = [n for n, d in want.items()
+           if sha256(decode_png((PNG_DIR / f"{n}.png").read_bytes())) != d]
+    frame = generate_synthetic_scenes(1, seed=3)[0][0]
+    path = RUNS / "frame_720p.png"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    write_png(path, frame)
+    data = path.read_bytes()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        got = decode_png(data)
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not np.array_equal(got, frame):
+        bad.append("frame_720p round trip")
+    emit("png_decode", files=len(want),
+         sha256_match_pil=f"{len(want) - len(bad)}/{len(want)}", mismatches=bad,
+         frame_720p_bytes=len(data), frame_720p_decode_ms=float(np.median(times)))
+    if bad:
+        raise AssertionError(f"PNG decodes differ from PIL's: {bad}")
+    return dict(decode_ms=float(np.median(times)))
+
+
+SMOOTHING_CUTS = (("progressive_420", 0.05), ("progressive_420", 0.20),
+                  ("progressive_420", 0.35), ("progressive_gray", 0.20),
+                  ("progressive_444", 0.20), ("progressive_444", 0.43),
+                  ("progressive_restart", 0.65))
+
+
+def phase_decode_smoothing(nproc: int) -> None:
+    """The committed progressive JPEGs cut before their last scans, where
+    libjpeg-turbo smooths the coefficients still unrefined, through the
+    pool at 300 rgb, 300 yuv420 and 512: each sha256 equal to the
+    reference pool's in the fixture."""
+    from bdd100k_tpu_torch.data.native_decode import NativeDecoder
+
+    want = json.loads((REPAIRS / "ref_smoothing_sha256.json").read_text())
+    dec = NativeDecoder(nproc)
+    bad, checked = [], 0
+    try:
+        for name, share in SMOOTHING_CUTS:
+            jpeg = (REPAIRS / f"{name}.jpg").read_bytes()
+            key = f"{name}@{int(share * 100)}"
+            cut = jpeg[:int(len(jpeg) * share)]
+            got = {str(s): sha256(dec.decode_batch([cut], s)[0]) for s in (300, 512)}
+            if "gray" not in name:
+                y, uv = dec.decode_batch_yuv420([cut], 300)
+                got["300_yuv420"] = [sha256(y[0]), sha256(uv[0])]
+            checked += len(got)
+            bad += [(key, k) for k in want[key] if got.get(k) != want[key][k]]
+    finally:
+        dec.close()
+    emit("decode_smoothing", cuts=[f"{n}@{int(s * 100)}" for n, s in SMOOTHING_CUTS],
+         sha256_match_reference=f"{checked - len(bad)}/{checked}", mismatches=bad)
+    if bad:
+        raise AssertionError(f"smoothed decodes differ from the reference's: {bad}")
+
+
+def run_int8_phases(torch, infer, nms, dw, nproc: int, frames) -> dict:
+    """Slice 9's phases: the int8 layers against the CPU, the int8 conv
+    table, the int8 evals in f32 and bf16, int8 serving beside bf16, the
+    CLI with --calib_images, then PNG decode and the smoothed progressive
+    decodes."""
+    layers = phase_quant_layers(torch)
+    conv = phase_int8_conv_times(torch)
+    ev32 = phase_eval_int8(torch, nms, dw, nproc, "float32")
+    ev16 = phase_eval_int8(torch, nms, dw, nproc, "bfloat16")
+    path = phase_path_int8(torch, infer, nms, dw, frames)
+    cli = phase_infer_cli_int8()
+    png = phase_png_decode()
+    phase_decode_smoothing(nproc)
+    return dict(layers=layers, conv=conv, eval_f32=ev32, eval_bf16=ev16,
+                path=path, cli=cli, png=png)
+
+
 def main() -> int:
     import torch
 
@@ -2742,6 +3287,15 @@ def main() -> int:
     # artifact, then the progressive decode and the bicubic resize
     files = run_files_phases(torch, nms, dw, matcher, nproc)
 
+    # int8 quant (slice 9): the quantized layers on the card against the
+    # CPU, the int8 conv route's times beside cuDNN's bf16 conv, the int8
+    # evals of SSD300 and VGG16-SSD512 against the JAX fixture in f32 and
+    # bf16 (the depthwise and NMS kernels held to their plain versions on
+    # that path), int8_static serving beside bf16, the CLI with PNG
+    # calibration frames; then PNG decode and the smoothed progressive
+    # decodes
+    int8 = run_int8_phases(torch, infer, nms, dw, nproc, frames)
+
     # the kernel table; launches are those of the main paths: SSD300
     # serving 512 requests, eval 2 batches of 32, 40 train steps; YOLO-384
     # serving 512 requests, eval 2 batches of 32 for each of the two
@@ -2757,6 +3311,7 @@ def main() -> int:
     yel = {k: sum(e["launches"][k] for e in yolo["eval_bf16"].values())
            for k in ("greedy_suppress", "depthwise3x3_s1")}
     ydw, ym, yn = yolo["dw"], yolo["matcher"], yolo["nms"]["b8"]
+    il = int8["path"]["launches"]
 
     def yolo_row(t: dict, shape: str) -> dict:
         return dict(shape=shape, ms=t["ms"], plain_ms=t["plain_ms"],
@@ -2769,7 +3324,7 @@ def main() -> int:
              launches=(launches["greedy_suppress"] + el["greedy_suppress"]
                        + ysl["greedy_suppress"] + yel["greedy_suppress"]
                        + vsl["greedy_suppress"] + vel["greedy_suppress"]
-                       + fl["greedy_suppress"]),
+                       + fl["greedy_suppress"] + il["greedy_suppress"]),
              max_abs_err=nms_t["max_abs_err"],
              ms=nms_t[100]["ms"], plain_ms=nms_t[100]["plain_ms"],
              bound_ms=nms_t[100]["bound_ms"], bound_by=nms_t[100]["bound_by"],
@@ -2787,7 +3342,7 @@ def main() -> int:
              launches=(launches["depthwise3x3_s1"] + el["depthwise3x3_s1"]
                        + tl["depthwise3x3_s1"] + ysl["depthwise3x3_s1"]
                        + yel["depthwise3x3_s1"] + ytl["depthwise3x3_s1"]
-                       + fl["depthwise3x3_s1"]),
+                       + fl["depthwise3x3_s1"] + il["depthwise3x3_s1"]),
              max_abs_err=max(dw_t["max_abs_err"], ydw["max_abs_err"]), ms=dw_t["ms"],
              plain_ms=dw_t["plain_ms"], bound_ms=dw_t["bound_ms"],
              bound_by="bytes", library_ms=dw_t["library_ms"],
@@ -2843,6 +3398,14 @@ def main() -> int:
          train_files_full_busy_share_of_unprofiled_p50=files["full"]["busy"][
              "device_busy_share_of_unprofiled_p50"],
          export_eval_map50=files["export"]["map50"],
+         int8_eval={k: dict(f32=int8["eval_f32"][k]["map50"],
+                            bf16=int8["eval_bf16"][k]["map50"])
+                    for k in int8["eval_f32"]},
+         int8_serving={k: {m: dict(p50_ms=v[m]["p50_ms"], imgs_per_s=v[m]["imgs_per_s"])
+                           for m in ("bf16", "int8_static")}
+                       for k, v in int8["path"].items() if k != "launches"},
+         int8_conv_sums=int8["conv"],
+         png_720p_decode_ms=int8["png"]["decode_ms"],
          note="kernel ms (SSD300 shapes): NMS at B=8 C=10 K=100 (one launch a "
               "call); depthwise forward summed over the 9 stride-1 layers at B=8 "
               "bf16, filter gradient at B=32 bf16; matcher at B=32 M=100 A=8732 "
@@ -2856,7 +3419,8 @@ def main() -> int:
               "eval 2 batches + 10 train steps at B=32; training from JPEG "
               "files: SSD300 30 steps at 512 yuv420 + 8 at full resolution, "
               "VGG16-SSD512 5 steps, and the exported artifact's eval 2 "
-              "batches")
+              "batches; int8_static serving (SSD300 64 b1 + 32 b8 requests, "
+              "VGG16-SSD512 8 b32 requests)")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,15 @@ JAX reference's routes, on the CPU.
   PIL's resize to 720×1280). The test holds the JSON to a fresh run of the
   reference and the port's decodes to the JSON; `chip_smoke.py` holds the
   port's decodes on the card to the same JSON, since the card's machine
-  has no PIL.
+  has no PIL;
+* `ref_smoothing_sha256.json`: the reference pool's decodes of those
+  progressive files cut short (4:2:0 at 5, 20 and 35 % of the file, gray
+  and 4:4:4 at 20 %, where libjpeg-turbo's interblock smoothing applies;
+  4:4:4 at 43 %, inside a DHT segment, which libjpeg reads on through fake
+  EOI bytes; the restart-marker file at 65 %, at a restart boundary in its
+  last scan), at 300 rgb, 300 yuv420 and 512, held to a fresh run of the
+  reference here and to the port's decodes here and on the card
+  (`chip_smoke.py`'s decode_smoothing).
 
 Regenerate the fixture with `python tests/test_torch_decode_repairs.py
 --make-fixture` (a few seconds).
@@ -43,6 +51,12 @@ FIXTURES = ROOT / "tests" / "fixtures"
 IMAGES = FIXTURES / "synth_val_seed1" / "images" / "val"
 REPAIRS = FIXTURES / "decode_repairs"
 SHA_JSON = REPAIRS / "ref_sha256.json"
+SMOOTHING_JSON = REPAIRS / "ref_smoothing_sha256.json"
+# (fixture, share of the file kept): cuts before the last scans
+SMOOTHING_CUTS = (("progressive_420", 0.05), ("progressive_420", 0.20),
+                  ("progressive_420", 0.35), ("progressive_gray", 0.20),
+                  ("progressive_444", 0.20), ("progressive_444", 0.43),
+                  ("progressive_restart", 0.65))
 PROGRESSIVE = {"progressive_420": {}, "progressive_444": {"subsampling": 0},
                "progressive_gray": {}, "progressive_restart": {"restart_marker_blocks": 3}}
 # (height, width) of the non-720p fixtures; 640×360 is an upscale
@@ -217,9 +231,60 @@ def test_port_decodes_match_the_fixture_sha256s():
         assert sha(got) == want["resize_bicubic"][path.name], path.name
 
 
+def smoothing_cuts() -> dict[str, bytes]:
+    """"<fixture>@<percent>" → the committed progressive file cut there."""
+    out = {}
+    for name, share in SMOOTHING_CUTS:
+        jpeg = (REPAIRS / f"{name}.jpg").read_bytes()
+        out[f"{name}@{int(share * 100)}"] = jpeg[:int(len(jpeg) * share)]
+    return out
+
+
+def pool_sha256s(decoder, jpeg: bytes, gray: bool) -> dict:
+    """sha256s of a pool's decodes at 300 rgb, 300 yuv420 (not gray) and
+    512."""
+    rec = {str(s): sha(decoder.decode_batch([jpeg], s)[0]) for s in POOL_SIZES}
+    if not gray:
+        y, uv = decoder.decode_batch_yuv420([jpeg], 300)
+        rec["300_yuv420"] = [sha(y[0]), sha(uv[0])]
+    return rec
+
+
+def test_smoothing_fixture_is_the_reference_pool_s():
+    from bdd100k_tpu.data import native_decode as ref_nd
+
+    want = json.loads(SMOOTHING_JSON.read_text())
+    cuts = smoothing_cuts()
+    assert sorted(want) == sorted(cuts)
+    ref = ref_nd.NativeDecoder(2)
+    for key, jpeg in cuts.items():
+        assert not jpeg.endswith(b"\xff\xd9")  # cut before its EOI
+        assert pool_sha256s(ref, jpeg, "gray" in key) == want[key], key
+
+
+def test_port_smooths_the_cut_files_to_the_fixture_sha256s():
+    want = json.loads(SMOOTHING_JSON.read_text())
+    dec = NativeDecoder(2)
+    try:
+        for key, jpeg in smoothing_cuts().items():
+            assert pool_sha256s(dec, jpeg, "gray" in key) == want[key], key
+    finally:
+        dec.close()
+
+
+def make_smoothing_fixture() -> None:
+    from bdd100k_tpu.data import native_decode as ref_nd
+
+    ref = ref_nd.NativeDecoder(2)
+    out = {key: pool_sha256s(ref, jpeg, "gray" in key)
+           for key, jpeg in smoothing_cuts().items()}
+    SMOOTHING_JSON.write_text(json.dumps(out, indent=1, sort_keys=True) + "\n")
+
+
 if __name__ == "__main__":
     if sys.argv[1:] == ["--make-fixture"]:
         make_fixture()
+        make_smoothing_fixture()
         print(f"wrote {REPAIRS}")
     else:
         sys.exit(f"usage: {sys.argv[0]} --make-fixture")

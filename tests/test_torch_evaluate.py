@@ -311,8 +311,8 @@ def test_pool_decodes_truncated_as_the_reference():
     """A baseline file cut in half, and a progressive one cut in its last
     scan (every coefficient's scans begun, so libjpeg's interblock
     smoothing is off): equal to the reference's decode, which pads the
-    missing data with zeros. A progressive file cut before its last scans
-    is ROADMAP Queue 3's open smoothing fault, not held here."""
+    missing data with zeros. Cuts before the last scans, which libjpeg
+    smooths: the next test."""
     whole = (IMAGES / "synthetic_val_00002.jpg").read_bytes()
     progressive = _progressive_encodings()["420"]
     last_sos = progressive.rindex(b"\xff\xda")
@@ -329,6 +329,105 @@ def test_pool_decodes_truncated_as_the_reference():
             dec.decode_batch_yuv420([whole], 301)
     finally:
         dec.close()
+
+
+# (variant, share of the file kept) of the early progressive cuts: the
+# 4:2:0 file at 5, 20 and 35 % (inside its Y AC 1-5 scan, its first Y
+# refinement and its Cb refinement), gray and 4:4:4 at 20 %
+SMOOTHED_CUTS = [("420", 0.05), ("420", 0.20), ("420", 0.35), ("gray", 0.20),
+                 ("444", 0.20)]
+
+
+@pytest.mark.parametrize("variant,share", SMOOTHED_CUTS,
+                         ids=[f"{v}-{int(s * 100)}pct" for v, s in SMOOTHED_CUTS])
+def test_pool_smooths_early_progressive_cuts_as_the_reference(variant, share):
+    """A progressive file cut before its last scans: libjpeg-turbo 2.1's
+    interblock smoothing estimates the coefficients that are not yet
+    refined, from the DC values around each block (the iMCU rows past the
+    cut with the status before the cut scan). The pool's decode equals the
+    reference pool's at 300 (rgb and yuv420) and 512."""
+    jpeg = _progressive_encodings()[variant]
+    cut = jpeg[:int(len(jpeg) * share)]
+    assert cut.count(b"\xff\xda") < jpeg.count(b"\xff\xda")  # scans missing
+    ref = _ref_decoder()
+    dec = NativeDecoder(2)
+    try:
+        for size in (300, 512):
+            np.testing.assert_array_equal(dec.decode_batch([cut], size),
+                                          ref.decode_batch([cut], size))
+        if variant != "gray":
+            for g, w in zip(dec.decode_batch_yuv420([cut], 300),
+                            ref.decode_batch_yuv420([cut], 300)):
+                np.testing.assert_array_equal(g, w)
+    finally:
+        dec.close()
+
+
+@pytest.mark.parametrize("variant", ["420", "444", "gray", "restart"])
+def test_pool_decodes_every_cut_as_the_reference(variant):
+    """The progressive file cut at every whole percent of its length: the
+    pool's decode at 300 and 512 equals the reference pool's, or both
+    refuse the cut. This holds the cuts inside marker segments (read on
+    through the fake EOI bytes libjpeg's memory source supplies, with a
+    Huffman table checked only when a scan uses it) and at restart
+    boundaries (the MCU after a clean interval decodes from zero bits)."""
+    jpeg = _progressive_encodings()[variant]
+    ref = _ref_decoder()
+    dec = NativeDecoder(2)
+
+    def run(d, cut, size):
+        try:
+            return d.decode_batch([cut], size)
+        except ValueError:
+            return None
+
+    decoded = 0
+    try:
+        for pct in range(1, 100):
+            cut = jpeg[:len(jpeg) * pct // 100]
+            for size in (300, 512):
+                got, want = run(dec, cut, size), run(ref, cut, size)
+                assert (got is None) == (want is None), (pct, size)
+                if want is not None:
+                    np.testing.assert_array_equal(got, want, err_msg=f"{pct} %")
+                    decoded += 1
+    finally:
+        dec.close()
+    assert decoded >= 190
+
+
+def test_full_resolution_routes_refuse_truncated_jpegs_as_pil(tmp_path):
+    """PIL raises "image file is truncated" on a JPEG whose data ends
+    before its EOI marker (LOAD_TRUNCATED_IMAGES is off): the port's
+    full-resolution routes, which the reference serves through PIL, raise
+    too, naming the file; the pool at a decode_size decodes what is
+    there, as the reference's pool does."""
+    from PIL import Image, ImageFile
+
+    assert not ImageFile.LOAD_TRUNCATED_IMAGES
+    baseline = (IMAGES / "synthetic_val_00002.jpg").read_bytes()
+    progressive = _progressive_encodings()["420"]
+    for name, data in (("base", baseline), ("prog", progressive)):
+        cut = data[:len(data) // 2]
+        with pytest.raises(OSError, match="truncated"):
+            with Image.open(io.BytesIO(cut)) as im:
+                im.convert("RGB")
+        with pytest.raises(OSError, match=f"{name}.jpg.*truncated"):
+            decode_full(cut, name=f"{name}.jpg")
+        with pytest.raises(OSError, match="truncated"):
+            decode_full(data[:-1])  # only the EOI marker's last byte gone
+        (tmp_path / f"{name}.jpg").write_bytes(cut)
+        np.testing.assert_array_equal(decode_full(data), decode_full(data + b"xx"))
+    records = [{"name": "base.jpg", "boxes": np.zeros((0, 4), np.float32),
+                "labels": np.zeros((0,), np.int32)}]
+    ds = port_pipeline.DetectionDataset(records, tmp_path)
+    with pytest.raises(OSError, match="base.jpg.*truncated"):
+        ds[0]
+    with pytest.raises(OSError, match="base.jpg.*truncated"):
+        next(port_pipeline.make_loader(ds, 1, shuffle=False, num_epochs=1,
+                                       num_workers=1))
+    pooled = port_pipeline.DetectionDataset(records, tmp_path, decode_size=300)
+    assert pooled[0]["image"].shape == (300, 300, 3)
 
 
 def test_decoded_pixels_match_the_fixture():
@@ -784,9 +883,29 @@ def test_evaluate_cli_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
         port_eval.main(["--synthetic", "4", "--ckpt_dir", str(ARTIFACT)])
 
 
+@pytest.mark.parametrize("argv,calibrated", [
+    (["--quant", "int8"], None),
+    (["--quant", "int8_static", "--calib_batches", "1"], 8),
+], ids=["int8", "int8_static_calib_batches"])
+def test_evaluate_cli_runs_int8(tmp_path, argv, calibrated):
+    """`--quant` as the reference's: int8 runs as it is, int8_static first
+    calibrates on the eval set's first --calib_batches batches of 8 and
+    records the protocol in the result JSON."""
+    out = tmp_path / "result.json"
+    result = port_eval.main(argv + [
+        "--synthetic", "10", "--ckpt_dir", str(ARTIFACT), "--batch_size", "8",
+        "--device", "cpu", "--num_workers", "2", "--out", str(out)])
+    saved = json.loads(out.read_text())
+    assert result["num_images"] == saved["num_images"] == 10
+    assert 0.3 < result["mAP"] <= 1.0
+    if calibrated is None:
+        assert "calib_images_used" not in saved
+    else:
+        assert saved["calib_images_used"] == calibrated
+        assert saved["calib_source"] == "eval-set head"
+
+
 @pytest.mark.parametrize("argv,item", [
-    (["--quant", "int8"], "item 10"),
-    (["--calib_batches", "4"], "item 10"),
     (["--multihost"], "item 11"),
     (["--mesh_data", "2"], "item 11"),
     (["--sync_dir", "sync"], "item 11"),
