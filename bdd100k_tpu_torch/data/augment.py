@@ -270,11 +270,21 @@ def _augment(draws: AugmentDraws, images_u8, boxes, labels, mask,
 
 def augment_batch(gen: torch.Generator, images_u8: torch.Tensor,
                   boxes: torch.Tensor, labels: torch.Tensor,
-                  mask: torch.Tensor, cfg: AugmentConfig = AugmentConfig()):
+                  mask: torch.Tensor, cfg: AugmentConfig = AugmentConfig(),
+                  shard: tuple[int, int] = (0, 1)):
     """Batched augment on the images' device: images_u8 (B, H, W, 3) uint8,
     padded GT (B, M, 4) / (B, M) / (B, M), draws from `gen` → (images (B, S,
-    S, 3) f32 normalized, boxes, labels, mask)."""
-    draws = draw_augment(gen, images_u8.shape[0], cfg, images_u8.device)
+    S, 3) f32 normalized, boxes, labels, mask).
+
+    `shard` (index, count): the batch is rows [index·B, (index+1)·B) of a
+    global batch of count·B; the draws are the global batch's and this
+    shard takes its rows, so `count` shards given one generator state
+    augment as one process augments the whole batch."""
+    index, count = shard
+    b = images_u8.shape[0]
+    draws = draw_augment(gen, b * count, cfg, images_u8.device)
+    if count > 1:
+        draws = AugmentDraws(*(t[index * b:(index + 1) * b] for t in draws))
     return _augment(draws, images_u8, boxes, labels, mask, cfg)
 
 

@@ -8,8 +8,8 @@ Two datasets:
   to a (decode_size, decode_size) square, RGB or planar YUV 4:2:0; without
   one, each JPEG decodes at full resolution on a thread pool of single
   decodes, as the reference's non-native route does;
-* `InMemoryDataset`: frames already in host memory as uint8, the rendered
-  scenes of `data/synthetic.py` that the trainer uses.
+* `InMemoryDataset`: frames already in host memory as uint8, such as the
+  rendered scenes of `data/synthetic.generate_synthetic_scenes`.
 
 `make_loader` keeps the reference's batching exactly: fixed batches, a
 per-epoch permutation that is a pure function of (seed, epoch), the final
@@ -279,6 +279,8 @@ def make_loader(
     skip_steps: int = 0,
     num_workers: int = 8,
     wire_format: str = "rgb",
+    process_index: int = 0,
+    process_count: int = 1,
 ) -> Iterator[Batch]:
     """Fixed batches over the dataset, for `num_epochs` epochs (None:
     forever), each epoch in the next permutation of `seed`'s RandomState
@@ -290,14 +292,23 @@ def make_loader(
     epoch. A `DetectionDataset` decodes through a pool of `num_workers`
     threads (full-resolution decodes on a `FullResolutionPool` of as many
     threads without a decode_size), on the `wire_format` "rgb" or "yuv420"
-    (even decode_size)."""
+    (even decode_size).
+
+    `process_index` / `process_count`: this rank's shard of the indices,
+    the strided `[index::count]`, cut to len // count rows so that every
+    rank yields as many batches an epoch (reference: pipeline.py:264-271);
+    each epoch permutes the shard, and `skip_steps` counts the shard's
+    batches."""
     if wire_format not in ("rgb", "yuv420"):
         raise ValueError(f"unknown wire_format {wire_format!r}")
     files = isinstance(dataset, DetectionDataset)
     size = dataset.decode_size if files else None
     if wire_format == "yuv420" and not (size and size % 2 == 0):
         raise ValueError("wire_format='yuv420' needs an even decode_size")
-    n = len(dataset)
+    local = np.arange(len(dataset))[process_index::process_count]
+    if process_count > 1:
+        local = local[:len(dataset) // process_count]
+    n = len(local)
     per_epoch = n // batch_size if drop_last else -(-n // batch_size)
     if per_epoch == 0:
         raise ValueError(f"{n} images cannot fill one batch of {batch_size}")
@@ -305,7 +316,7 @@ def make_loader(
     full_epochs, skip_batches = divmod(skip_steps, per_epoch)
     for _ in range(full_epochs):
         if shuffle:
-            rng.permutation(n)  # advance the RNG identically
+            rng.permutation(local)  # advance the RNG identically
     epoch = full_epochs
     decoder = None
     if files:
@@ -313,7 +324,7 @@ def make_loader(
                    else FullResolutionPool(num_workers))
     try:
         while num_epochs is None or epoch < num_epochs:
-            order = rng.permutation(n) if shuffle else np.arange(n)
+            order = rng.permutation(local) if shuffle else local
             for bi in range(skip_batches, per_epoch):  # mid-epoch resume cursor
                 idx = order[bi * batch_size:(bi + 1) * batch_size]
                 if len(idx) < batch_size:  # pad the final partial batch

@@ -1,21 +1,22 @@
-"""Synthetic BDD100K-style scenes (mirror of bdd100k_tpu/data/synthetic.py):
-rendered in memory, or read from a directory of the reference's JPEGs.
+"""Synthetic BDD100K-format dataset generator (mirror of
+bdd100k_tpu/data/synthetic.py): driving-scene-shaped frames (sky gradient,
+road trapezoid) with class-coloured rectangles as objects, JPEG-encoded,
+and a labels JSON in the BDD100K release format.
 
-Same RandomState draws in the same order as the reference's
-`generate_synthetic_dataset`, so for one seed the frames are bit-equal to
-what the reference renders before its JPEG save, and the boxes equal what
-its label parser reads back. Nothing is written to disk and no image
-library is needed.
-
-`ensure_synthetic_dataset` reads a directory that the reference's
-`generate_synthetic_dataset` wrote (the JPEG encode needs PIL, which the
-port does not use), such as the committed
-`tests/fixtures/synth_val_seed1` (64 seed-1 val scenes).
+The RandomState draws are the reference's, in its order, so for one seed
+`generate_synthetic_dataset` writes the reference's directory byte for
+byte: the JPEGs through the port's encoder (`data/jpeg_encode.py`, PIL's
+bytes at quality 90) and the labels JSON. `generate_synthetic_scenes`
+gives the same scenes in memory, the frames before the JPEG encode, for
+tests that need the renders. The committed `tests/fixtures/synth_val_seed1`
+holds the 64 seed-1 'val' scenes.
 """
 
 from __future__ import annotations
 
 import json
+import os
+import time
 from pathlib import Path
 
 import numpy as np
@@ -84,26 +85,22 @@ def _render_scene(rng: np.random.RandomState, boxes_px, classes) -> np.ndarray:
     return np.clip(img.astype(int) + noise, 0, 255).astype(np.uint8)
 
 
-def generate_synthetic_scenes(
-    num_images: int = 32, seed: int = 0, max_objects: int = 12
-) -> tuple[np.ndarray, list[np.ndarray], list[np.ndarray]]:
-    """→ (frames (N, 720, 1280, 3) uint8, boxes [(n_i, 4) f32 normalized
-    corner], labels [(n_i,) int32 in 1..10]).
+_WEATHERS = ["clear", "rainy", "snowy", "overcast", "foggy"]
+_TIMES = ["daytime", "night", "dawn/dusk"]
 
-    The draws mirror `generate_synthetic_dataset` one for one, including
-    the attribute draws that only feed its JSON, so the stream stays in
-    step. The boxes are normalized and clamped as the reference's label
-    parser does; none is degenerate at these sizes, so none is dropped.
-    """
+
+def _scenes(num_images: int, seed: int, max_objects: int, split: str):
+    """The reference generator's loop → for each scene (frame, pixel boxes,
+    classes, labels record), from one RandomState in the reference's order
+    of draws."""
     rng = np.random.RandomState(seed)
-    frames = np.empty((num_images, IMAGE_HEIGHT, IMAGE_WIDTH, 3), np.uint8)
-    all_boxes, all_labels = [], []
     for idx in range(num_images):
         n_obj = rng.randint(1, max_objects + 1)
-        boxes_px, classes = [], []
+        boxes_px, classes, labels_json = [], [], []
         for _ in range(n_obj):
             cls = int(rng.randint(1, len(BDD100K_CLASSES) + 1))
-            (wmin, wmax), (hmin, hmax) = _SIZE_RANGES[BDD100K_CLASSES[cls - 1]]
+            name = BDD100K_CLASSES[cls - 1]
+            (wmin, wmax), (hmin, hmax) = _SIZE_RANGES[name]
             bw = rng.randint(wmin, wmax + 1)
             bh = rng.randint(hmin, hmax + 1)
             x1 = rng.randint(0, max(IMAGE_WIDTH - bw, 1))
@@ -117,11 +114,41 @@ def generate_synthetic_scenes(
             )
             boxes_px.append(box)
             classes.append(cls)
-            rng.rand()  # occluded attribute
-            rng.rand()  # truncated attribute
-        frames[idx] = _render_scene(rng, boxes_px, classes)
-        rng.randint(5)  # weather attribute
-        rng.randint(3)  # time-of-day attribute
+            labels_json.append({
+                "category": name,
+                "attributes": {
+                    "occluded": bool(rng.rand() < 0.3),
+                    "truncated": bool(rng.rand() < 0.1),
+                },
+                "box2d": {"x1": float(box[0]), "y1": float(box[1]),
+                          "x2": float(box[2]), "y2": float(box[3])},
+            })
+        img = _render_scene(rng, boxes_px, classes)
+        record = {
+            "name": f"synthetic_{split}_{idx:05d}.jpg",
+            "attributes": {
+                "weather": _WEATHERS[rng.randint(len(_WEATHERS))],
+                "scene": "city street",
+                "timeofday": _TIMES[rng.randint(len(_TIMES))],
+            },
+            "labels": labels_json,
+        }
+        yield img, boxes_px, classes, record
+
+
+def generate_synthetic_scenes(
+    num_images: int = 32, seed: int = 0, max_objects: int = 12
+) -> tuple[np.ndarray, list[np.ndarray], list[np.ndarray]]:
+    """→ (frames (N, 720, 1280, 3) uint8, boxes [(n_i, 4) f32 normalized
+    corner], labels [(n_i,) int32 in 1..10]): the scenes of
+    `generate_synthetic_dataset` before the JPEG encode. The boxes are
+    normalized and clamped as the reference's label parser does; none is
+    degenerate at these sizes, so none is dropped."""
+    frames = np.empty((num_images, IMAGE_HEIGHT, IMAGE_WIDTH, 3), np.uint8)
+    all_boxes, all_labels = [], []
+    for idx, (img, boxes_px, classes, _) in enumerate(
+            _scenes(num_images, seed, max_objects, "train")):
+        frames[idx] = img
         # the parser's float path: float(px) / size in float64, clamped
         norm = np.asarray(
             [
@@ -140,7 +167,40 @@ def generate_synthetic_scenes(
     return frames, all_boxes, all_labels
 
 
-FIXTURE_DIR = Path(__file__).resolve().parents[2] / "tests" / "fixtures" / "synth_val_seed1"
+WAIT_SECONDS = 600.0  # how long a lock loser waits for the generator
+
+
+def _write_atomic(path: Path, data: bytes) -> None:
+    """Write under a temporary name and rename: a reader, or a second
+    generator writing the same bytes, never sees a partial file."""
+    tmp = path.with_name(f".{path.name}.{os.getpid()}.tmp")
+    tmp.write_bytes(data)
+    os.replace(tmp, path)
+
+
+def generate_synthetic_dataset(
+    out_dir: str | Path,
+    num_images: int = 32,
+    seed: int = 0,
+    max_objects: int = 12,
+    split: str = "train",
+) -> Path:
+    """Write images/<split>/*.jpg (quality 90) and then
+    labels/<split>.json (BDD100K layout), the reference's bytes → the
+    labels JSON path."""
+    from bdd100k_tpu_torch.data.jpeg_encode import encode_jpeg
+
+    out_dir = Path(out_dir)
+    img_dir = out_dir / "images" / split
+    img_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "labels").mkdir(parents=True, exist_ok=True)
+    records = []
+    for img, _, _, record in _scenes(num_images, seed, max_objects, split):
+        _write_atomic(img_dir / record["name"], encode_jpeg(img, quality=90))
+        records.append(record)
+    labels_path = out_dir / "labels" / f"{split}.json"
+    _write_atomic(labels_path, json.dumps(records).encode())
+    return labels_path
 
 
 def ensure_synthetic_dataset(
@@ -150,31 +210,59 @@ def ensure_synthetic_dataset(
     max_objects: int = 12,
     split: str = "train",
 ) -> Path:
-    """The labels path of a complete synthetic split in `out_dir`:
-    `labels/<split>.json` with at least `num_images` records, and the JPEG
-    of each of the first `num_images` under `images/<split>/`. Unlike the
-    reference it never writes: a short directory raises. The files are
-    taken to be what the reference generated for `seed` and `max_objects`;
-    their first N records are the N-record set, as generation is
-    sequential from the seed."""
-    del seed, max_objects  # they made the files; nothing here redraws them
+    """Generate only when the labels file is missing or holds fewer than
+    `num_images` records → its path. Generation is sequential from the
+    seed, so a larger existing set's first N records are the N-record set.
+
+    Under a process group (`parallel/mesh.py`), rank 0 generates first and
+    the others wait at a barrier; a rank that still finds no complete split
+    (its directory is not rank 0's, as on another machine's /tmp) claims a
+    local O_EXCL lock and generates its own copy, and the lock's losers
+    poll for the labels JSON, which generation writes last, for up to
+    WAIT_SECONDS."""
+    from bdd100k_tpu_torch.parallel import mesh
+
     out_dir = Path(out_dir)
     labels_path = out_dir / "labels" / f"{split}.json"
-    try:
-        records = json.loads(labels_path.read_text())
-    except (OSError, ValueError) as e:
-        records, why = [], f"{labels_path} cannot be read ({e})"
-    else:
-        why = f"{labels_path} holds {len(records)} records"
-    missing = [r["name"] for r in records[:num_images]
-               if not (out_dir / "images" / split / r["name"]).is_file()]
-    if len(records) < num_images or missing:
-        if missing:
-            why = f"{len(missing)} JPEGs are missing, {missing[0]} first"
-        raise FileNotFoundError(
-            f"no complete synthetic {split!r} split of {num_images} images in "
-            f"{out_dir}: {why}. The port reads the directory that the "
-            "reference's generate_synthetic_dataset writes and writes none "
-            f"itself; the committed {FIXTURE_DIR} holds the 64 seed-1 "
-            "'val' scenes")
-    return labels_path
+
+    def complete() -> bool:
+        try:
+            return len(json.loads(labels_path.read_text())) >= num_images
+        except (ValueError, OSError):
+            return False
+
+    def ensure() -> Path:
+        if complete():
+            return labels_path
+        return generate_synthetic_dataset(
+            out_dir, num_images=num_images, seed=seed,
+            max_objects=max_objects, split=split)
+
+    def ensure_claimed() -> None:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        lock = out_dir / f".gen_lock_{split}"
+        try:
+            os.close(os.open(lock, os.O_CREAT | os.O_EXCL | os.O_WRONLY))
+        except FileExistsError:
+            deadline = time.monotonic() + WAIT_SECONDS
+            while not complete():
+                if time.monotonic() > deadline:
+                    raise TimeoutError(
+                        f"waited {WAIT_SECONDS:.0f}s for {labels_path}: a "
+                        f"previous generator may have crashed; remove the "
+                        f"stale {lock} and retry") from None
+                time.sleep(0.5)
+            return
+        try:
+            ensure()
+        finally:
+            lock.unlink(missing_ok=True)
+
+    if mesh.data_size() > 1:
+        if mesh.data_rank() == 0:
+            ensure()
+        mesh.barrier()
+        if not complete():
+            ensure_claimed()
+        return labels_path
+    return ensure()

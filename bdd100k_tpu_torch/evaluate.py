@@ -15,6 +15,9 @@ bdd100k_tpu/evaluate.py).
         --ckpt_dir artifacts/ssd_mobilenet_300_synth9k.npz \\
         --quant int8_static --calib_images calib_frames/
     # on the CPU (the plain versions of the kernels): add --device cpu
+    # sharded over N processes, merged by rank 0:
+    torchrun --nproc_per_node N -m bdd100k_tpu_torch.evaluate --multihost \\
+        --sync_dir shared/eval_sync --synthetic 64 --ckpt_dir ...
 
 JPEG files decode on the host straight to the model's input size, a batch
 in one call into the decode pool, one batch ahead of the card
@@ -29,6 +32,12 @@ QuantConv); int8_static first calibrates its activation scales, on
 `--calib_images` or on the eval set's first `--calib_batches` batches of 8
 (models/quant.py), and the result records `calib_images_used` and
 `calib_source`.
+
+`--multihost` (`run_eval_multihost`): each of the group's ranks evaluates
+its strided share of the records on its own card, with no collectives,
+and writes its accumulated detections to `--sync_dir`; rank 0 merges the
+shards into one mAP, and every rank returns it. Several processes without
+`--multihost` are refused: each would evaluate the whole set.
 """
 
 from __future__ import annotations
@@ -36,9 +45,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
+import tempfile
 import time
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from bdd100k_tpu_torch.configs import BDD100K_CLASSES, apply_yolo_priors, get_config
@@ -47,11 +59,12 @@ from bdd100k_tpu_torch.data.pipeline import (
     make_loader,
     prefetch_to_device,
 )
-from bdd100k_tpu_torch.data.synthetic import FIXTURE_DIR, ensure_synthetic_dataset
+from bdd100k_tpu_torch.data.synthetic import ensure_synthetic_dataset
 from bdd100k_tpu_torch.models.detector import build_detector
 from bdd100k_tpu_torch.models.quant import calibrate_for_driver, load_quant_state
 from bdd100k_tpu_torch.ops.map_metric import DetectionEvaluator
 from bdd100k_tpu_torch.ops.nms import Detections
+from bdd100k_tpu_torch.parallel import mesh
 from bdd100k_tpu_torch.parallel.train_step import make_eval_step
 from bdd100k_tpu_torch.utils.device import resolve_device, strict_f32
 from bdd100k_tpu_torch.utils.weights import restore_eval_weights
@@ -67,11 +80,15 @@ def parse_args(argv=None):
     p.add_argument("--labels", default=None)
     p.add_argument("--image_dir", default=None)
     p.add_argument("--synthetic", type=int, default=0,
-                   help="evaluate the first N scenes of --synthetic_dir")
-    p.add_argument("--synthetic_dir", default=str(FIXTURE_DIR),
-                   help="a split the reference's generate_synthetic_dataset "
-                        "wrote (read, never written); default: the "
-                        "committed 64 seed-1 val scenes")
+                   help="evaluate the first N seed-1 synthetic val scenes "
+                        "of --synthetic_dir, generated there when short")
+    p.add_argument("--synthetic_dir",
+                   default=os.path.join(tempfile.gettempdir(), "bdd_synth_val"),
+                   help="where --synthetic's val split lives (default: "
+                        "bdd_synth_val in the temporary directory, "
+                        "/tmp/bdd_synth_val as the reference's when TMPDIR "
+                        "is unset; tests/fixtures/synth_val_seed1 holds the "
+                        "same 64 scenes)")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--max_boxes", type=int, default=100)
     p.add_argument("--ckpt_dir", default=None,
@@ -93,7 +110,9 @@ def parse_args(argv=None):
                    help="threads of the JPEG decode pool")
     p.add_argument("--out", default=None, help="write results JSON here")
     p.add_argument("--mesh_data", type=int, default=None,
-                   help="not ported yet (multi-GPU, ROADMAP Queue 1 item 11)")
+                   help="the data axis's length: one process per GPU, so "
+                        "it must equal the world size (default: the world "
+                        "size)")
     p.add_argument("--nms", choices=("auto", "xla", "pallas", "fixpoint"),
                    default="auto",
                    help="the reference's NMS backends, which make identical "
@@ -130,27 +149,19 @@ def parse_args(argv=None):
                         "bytes and rebuilds RGB on the card (its chroma "
                         "path differs from rgb's at the last bit)")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 11)")
+                   help="join the torch.distributed group that torchrun's "
+                        "environment names; each rank evaluates its shard "
+                        "of the records and rank 0 merges the mAP")
     p.add_argument("--sync_dir", default=None,
-                   help="not ported yet (ROADMAP Queue 1 item 11)")
+                   help="--multihost: a directory every rank can read and "
+                        "write, for the shards and result.json (default: "
+                        "<ckpt_dir>/eval_sync)")
     p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
                    help="the convs' working type; float32 turns TF32 off, "
                         "for comparisons with the reference's f32 mAP")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without CUDA) or cpu")
     return p.parse_args(argv)
-
-
-def refuse_unported(args) -> None:
-    """Flags whose slice is still to come raise SystemExit, naming the
-    ROADMAP item, when set away from their defaults."""
-    later = []
-    if args.multihost or args.sync_dir is not None or args.mesh_data is not None:
-        later.append(("--multihost/--sync_dir/--mesh_data",
-                      "item 11 (multi-GPU and multi-host)"))
-    if later:
-        raise SystemExit("not ported yet: " + "; ".join(
-            f"{flag}, ROADMAP Queue 1 {item}" for flag, item in later))
 
 
 def _dump_image(dataset, idx: int, det: Detections, row: int) -> dict:
@@ -191,7 +202,7 @@ def fetch_async(tensors: list[torch.Tensor]):
     return host, done
 
 
-def run_eval(bundle, dataset, args, quant_state=None) -> dict:
+def run_eval(bundle, dataset, args, quant_state=None, compute: bool = True):
     """Evaluate `dataset` on the bundle's device → the result dict: the
     evaluator's mAP and per-class AP, `coco` with --coco_map,
     `images_per_sec` (steady state: the first batch, which pays the kernel
@@ -199,7 +210,9 @@ def run_eval(bundle, dataset, args, quant_state=None) -> dict:
     run is that one batch) and `num_images`. An "int8_static" bundle runs
     on `quant_state` (`models/quant.quant_state`) when given, else
     calibrates first (`calibrate_for_driver`: `args.calib_images`, else
-    the dataset's head) and adds `calib_images_used` and `calib_source`."""
+    the dataset's head) and adds `calib_images_used` and `calib_source`.
+    With `compute=False` → (the evaluator, images seen), its mAP not yet
+    computed (the sharded eval merges evaluators first)."""
     device = bundle.anchors.device
     n_calib = None
     if bundle.config.quant == "int8_static":
@@ -266,6 +279,8 @@ def run_eval(bundle, dataset, args, quant_state=None) -> dict:
     finally:
         batches.close()
     dt = (time.monotonic() - t0) if t0 is not None else 0.0
+    if not compute:
+        return evaluator, seen
     result = evaluator.compute(iou_threshold=args.iou_threshold)
     if getattr(args, "coco_map", False):
         result["coco"] = evaluator.compute_range()
@@ -300,10 +315,82 @@ def load_dataset(args, decode_size: int) -> DetectionDataset:
         decode_size=decode_size)
 
 
+def run_eval_multihost(bundle, dataset, args) -> dict:
+    """The sharded eval (reference: evaluate.py::run_eval_multihost): rank r
+    of R evaluates records[r::R] (the remainder is kept: mAP is over the
+    whole set, and there are no collectives to keep in step), writes its
+    evaluator's arrays to `shard_<r>.npz` in the sync directory, and rank 0
+    merges them into `result.json` and broadcasts it; every rank returns
+    that result. An
+    "int8_static" bundle is calibrated on the unsharded dataset's head on
+    every rank, so every rank freezes the same activation scales."""
+    rank, nproc = mesh.data_rank(), mesh.data_size()
+    sync_dir = args.sync_dir or (
+        str(Path(args.ckpt_dir) / "eval_sync") if args.ckpt_dir else None)
+    if sync_dir is None:
+        raise SystemExit(
+            "multi-host eval needs --sync_dir (or --ckpt_dir) on a shared "
+            "filesystem for the shard merge")
+    sync = Path(sync_dir)
+    if rank == 0:
+        sync.mkdir(parents=True, exist_ok=True)
+    mesh.barrier()
+    quant_state = None
+    if bundle.config.quant == "int8_static":
+        quant_state, n_calib = calibrate_for_driver(
+            bundle, calib_images=getattr(args, "calib_images", None),
+            dataset=dataset, num_batches=getattr(args, "calib_batches", 8))
+        print(f"int8_static: calibrated act scales on {n_calib} images")
+    shard = DetectionDataset(
+        dataset.records[rank::nproc], dataset.image_dir, dataset.max_boxes,
+        dataset.image_height, dataset.image_width, dataset.decode_size)
+    evaluator, _ = run_eval(bundle, shard, args, quant_state=quant_state,
+                            compute=False)
+    np.savez(sync / f"shard_{rank}.npz", **evaluator.to_arrays())
+    mesh.barrier()
+    result = None
+    if rank == 0:
+        merged = DetectionEvaluator(bundle.config.num_classes,
+                                    list(BDD100K_CLASSES))
+        for i in range(nproc):
+            with np.load(sync / f"shard_{i}.npz") as blob:
+                merged.merge_arrays(dict(blob))
+        result = merged.compute(iou_threshold=args.iou_threshold)
+        if getattr(args, "coco_map", False):
+            result["coco"] = merged.compute_range()
+        result["num_images"] = merged.num_images
+        result["num_hosts"] = nproc
+        (sync / "result.json").write_text(json.dumps(result))
+    return mesh.broadcast_object(result)
+
+
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    refuse_unported(args)
     device = resolve_device(args.device)
+    if args.multihost:
+        device = mesh.init_distributed(device)
+    try:
+        return evaluate(args, device)
+    finally:
+        if args.multihost:
+            mesh.shutdown()
+
+
+def evaluate(args, device: torch.device) -> dict:
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world > 1 and not args.multihost:
+        # each process would evaluate the whole set: refuse rather than
+        # report a mAP over duplicated inputs
+        raise SystemExit(
+            f"multiple processes detected (WORLD_SIZE={world}); run eval "
+            "with --multihost (per-rank shards + merged mAP) or on a single "
+            "process")
+    mesh.resolve_mesh_data(args.mesh_data)
+    multihost = mesh.data_size() > 1
+    if multihost and args.dump_detections:
+        raise SystemExit(
+            "--dump_detections is single-host only (per-rank shards would "
+            "each write a partial file)")
     det_cfg = get_config(args.config)
     if args.yolo_priors:
         det_cfg = apply_yolo_priors(det_cfg, args.yolo_priors)
@@ -320,7 +407,10 @@ def main(argv=None) -> dict:
             print(f"restored step {step}" + (" (EMA weights)" if args.ema else ""))
         # no augment at eval: decode straight to the model's input size
         dataset = load_dataset(args, det_cfg.image_size)
-        result = run_eval(bundle, dataset, args)
+        if multihost:
+            result = run_eval_multihost(bundle, dataset, args)
+        else:
+            result = run_eval(bundle, dataset, args)
     ips = result.get("images_per_sec")
     print(f"\nmAP@{args.iou_threshold}: {result['mAP']:.4f}"
           + (f" ({ips:.1f} imgs/sec steady-state)" if ips else ""))

@@ -24,10 +24,12 @@ PNG, as PIL decodes it) and a pipelined directory sweep (`run_dir`).
 `--quant int8` / `int8_static` run the dense convs in int8; int8_static
 calibrates on `--calib_images` when the predictor is built, else on the
 first batch it runs (padded rows included), as the reference does.
-Departures from the reference: drawn outputs are PNG files
-(`det_<stem>.png`, written with zlib: the card's machine has no PIL or
-cv2); the video mode is not ported (it needs cv2.VideoCapture, which the
-card's machine lacks). `--dtype float32` is the port's own: it runs the
+`--out_dir` writes each drawn frame as `det_<name>` in its input's
+format, as the reference's PIL save does: a JPEG through the port's
+encoder at PIL's default quality 75 (`data/jpeg_encode.py`, PIL's bytes),
+a PNG with zlib (PIL's pixels). Departure from the reference: the video
+mode is not ported (it needs cv2.VideoCapture, which the card's machine
+lacks). `--dtype float32` is the port's own: it runs the
 convs in f32 with TF32 off, where the printed detections can be held to
 an f32 run of the reference.
 """
@@ -52,6 +54,7 @@ from bdd100k_tpu_torch.configs.detector_configs import (
 )
 from bdd100k_tpu_torch.data.augment import preprocess_eval_batch
 from bdd100k_tpu_torch.data.host_resize import resize_linear
+from bdd100k_tpu_torch.data.jpeg_encode import encode_jpeg
 from bdd100k_tpu_torch.data.native_decode import NativeDecoder
 from bdd100k_tpu_torch.data.pipeline import (
     DetectionDataset,
@@ -90,7 +93,8 @@ def parse_args(argv=None):
     p.add_argument("--image_dir", default=None)
     p.add_argument("--video", default=None, help="not ported: " + VIDEO_NOT_PORTED)
     p.add_argument("--out_dir", default=None,
-                   help="write drawn outputs here, as det_<stem>.png")
+                   help="write drawn outputs here, as det_<name> in the "
+                        "input's format (JPEG at quality 75, or PNG)")
     p.add_argument("--score_threshold", type=float, default=0.4,
                    help="display threshold of the printed and drawn boxes")
     p.add_argument("--batch_size", type=int, default=8,
@@ -323,7 +327,16 @@ def _emit(args, name, frame, det_i, out_dir):
             frame, det_i["boxes"], det_i["scores"], det_i["classes"],
             det_i["valid"], score_threshold=args.score_threshold,
         )
-        write_png(Path(out_dir) / f"det_{Path(name).stem}.png", drawn)
+        write_drawn(Path(out_dir) / f"det_{Path(name).name}", drawn)
+
+
+def write_drawn(path: Path, image: np.ndarray) -> None:
+    """A drawn frame in the format its name gives, as PIL's `save(path)`
+    picks it: `.png` as PNG, else JPEG at PIL's default quality."""
+    if path.suffix.lower() == ".png":
+        write_png(path, image)
+    else:
+        path.write_bytes(encode_jpeg(image))
 
 
 def parse_detection_lines(text: str) -> dict[str, list[tuple]]:

@@ -26,10 +26,12 @@ outside the state_dict (`models/quant.py` fills them,
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
@@ -61,6 +63,42 @@ def lecun_normal_(weight: torch.Tensor, generator: torch.Generator | None = None
     return weight
 
 
+class _MeanOverRanks(torch.autograd.Function):
+    """The mean of a tensor over a process group's ranks, in the forward and
+    the backward: y = Σ_r x_r / R, so each rank's gradient of x is the mean
+    of every rank's gradient of y."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone()
+        dist.all_reduce(y, group=group)
+        return y / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        g = grad.clone()
+        dist.all_reduce(g, group=ctx.group)
+        return g / dist.get_world_size(ctx.group), None
+
+
+_BN_GROUP = None  # set by global_batch_statistics
+
+
+@contextlib.contextmanager
+def global_batch_statistics(group):
+    """BatchNorm in train mode inside the block takes its statistics over
+    the global batch that the ranks of `group` hold together (each rank the
+    same number of rows), as the reference's BatchNorm does over a batch
+    sharded on the mesh; None keeps them local."""
+    global _BN_GROUP
+    saved, _BN_GROUP = _BN_GROUP, group
+    try:
+        yield
+    finally:
+        _BN_GROUP = saved
+
+
 class BatchNorm(nn.BatchNorm2d):
     """BatchNorm in f32 with flax's operation order:
     (x − mean) · (rsqrt(var + eps) · scale) + bias.
@@ -69,7 +107,10 @@ class BatchNorm(nn.BatchNorm2d):
     f32 with flax's fast variance E[x²] − E[x]² clipped at 0 (biased), and
     the running statistics move as ra ← 0.97·ra + 0.03·batch with that
     biased variance. `F.batch_norm(training=True)` would fold the unbiased
-    variance into `running_var`, so it is not used."""
+    variance into `running_var`, so it is not used. Inside
+    `global_batch_statistics(group)`, E[x] and E[x²] are first averaged over
+    the group's ranks in one all-reduce (not `nn.SyncBatchNorm`, whose
+    Welford update and unbiased running variance are not flax's)."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPS, momentum=BN_MOMENTUM)
@@ -78,7 +119,11 @@ class BatchNorm(nn.BatchNorm2d):
         x = x.to(torch.float32)
         if self.training:
             mean = x.mean(dim=(0, 2, 3))
-            var = torch.clamp_min((x * x).mean(dim=(0, 2, 3)) - mean * mean, 0.0)
+            mean_sq = (x * x).mean(dim=(0, 2, 3))
+            if _BN_GROUP is not None:
+                both = _MeanOverRanks.apply(torch.cat([mean, mean_sq]), _BN_GROUP)
+                mean, mean_sq = both.chunk(2)
+            var = torch.clamp_min(mean_sq - mean * mean, 0.0)
             with torch.no_grad():
                 keep = 1.0 - self.momentum
                 self.running_mean.copy_(

@@ -98,6 +98,11 @@ class DetectionEvaluator:
             self._gts[(img_id, int(cls))].append(box)
             self._gt_count[int(cls)] += 1
 
+    @property
+    def num_images(self) -> int:
+        """Images added, merged shards included."""
+        return self._next_img
+
     def to_arrays(self) -> dict:
         """Serialize the accumulated state to flat numpy arrays (npz-able).
 

@@ -1,4 +1,6 @@
-"""The train and eval steps (mirror of bdd100k_tpu/parallel/train_step.py).
+"""The train and eval steps (mirror of bdd100k_tpu/parallel/train_step.py;
+the data-parallel form over a process group is `make_train_step(group=)`,
+the reference's pjit step over a mesh).
 
 One step on the card: uint8 frames + padded GT → augment → forward (bf16
 convs, f32 BatchNorm in train mode) → matcher kernel → hard-negative
@@ -24,6 +26,7 @@ from typing import Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from bdd100k_tpu_torch.configs.train_configs import TrainConfig
 from bdd100k_tpu_torch.data.augment import (
@@ -33,6 +36,7 @@ from bdd100k_tpu_torch.data.augment import (
     yuv420_to_rgb_batch,
 )
 from bdd100k_tpu_torch.models.detector import DetectorBundle
+from bdd100k_tpu_torch.models.layers import global_batch_statistics
 from bdd100k_tpu_torch.models.losses import LossBreakdown, ssd_loss, yolo_loss
 from bdd100k_tpu_torch.ops import boxes as box_ops
 from bdd100k_tpu_torch.ops import matcher
@@ -179,11 +183,34 @@ def yuv420_rgb_u8(y: torch.Tensor, uv: torch.Tensor) -> torch.Tensor:
     return (yuv420_to_rgb_batch(y, uv) * 255.0 + 0.5).to(torch.uint8)
 
 
+def mean_over_ranks_(tensors: list[torch.Tensor], group) -> None:
+    """Average `tensors` over the group's ranks in place, in one flattened
+    all-reduce."""
+    flat = torch.cat([t.reshape(-1) for t in tensors])
+    dist.all_reduce(flat, group=group)
+    flat /= dist.get_world_size(group)
+    torch._foreach_copy_(tensors, [f.view_as(t) for f, t in zip(
+        flat.split([t.numel() for t in tensors]), tensors)])
+
+
+def loss_metrics(lb: LossBreakdown, grad_norm: torch.Tensor, group) -> dict:
+    """The step's metrics; the losses are averaged over the group's ranks
+    when there is a group."""
+    losses = [lb.total.detach(), lb.conf.detach(), lb.loc.detach()]
+    if group is not None:
+        stacked = torch.stack(losses)
+        mean_over_ranks_([stacked], group)
+        losses = stacked.unbind()
+    return {"loss": losses[0], "conf_loss": losses[1], "loc_loss": losses[2],
+            "grad_norm": grad_norm}
+
+
 def make_train_step(
     bundle: DetectorBundle,
     augment_cfg: AugmentConfig | None = None,
     ema_decay: float = 0.0,
     device: str | torch.device = "cuda",
+    group=None,
 ) -> Callable:
     """step(state, gen, images, gt_boxes, gt_labels, gt_mask) → metrics.
 
@@ -194,13 +221,25 @@ def make_train_step(
     preprocessed (B, S, S, 3) and bypass the augment, as the reference
     does. The metrics are device scalars: loss, conf_loss, loc_loss and
     grad_norm (before the clip). `device` defaults to CUDA and raises
-    without it; the bundle must live on it."""
+    without it; the bundle must live on it.
+
+    `group`: a `torch.distributed` group whose ranks each hold B rows of
+    one global batch, rank r rows [r·B, (r+1)·B) — the reference's pjit
+    step over a mesh. Every rank draws the global batch's augment from
+    `gen` (seeded alike on every rank) and takes its rows; BatchNorm takes
+    global-batch statistics (`global_batch_statistics`); the gradients are
+    averaged over the ranks in one flattened all-reduce before the clip,
+    so every rank clips by the same norm and keeps the same weights and
+    EMA; the metrics are means over the ranks. With None the step is the
+    one-process step."""
     device = resolve_device(device)
     if bundle.anchors.device.type != device.type:
         raise ValueError(
             f"the bundle lives on {bundle.anchors.device}, not {device}")
     if augment_cfg is None:
         augment_cfg = AugmentConfig(out_size=bundle.config.image_size)
+    shard = ((dist.get_rank(group), dist.get_world_size(group))
+             if group is not None else (0, 1))
 
     def step(state: TrainState, gen, images, gt_boxes, gt_labels, gt_mask):
         model = state.model
@@ -209,20 +248,18 @@ def make_train_step(
             images = yuv420_rgb_u8(*images)
         if images.dtype == torch.uint8:
             images, gt_boxes, gt_labels, gt_mask = augment_batch(
-                gen, images, gt_boxes, gt_labels, gt_mask, augment_cfg)
-        loc, cls = model(images)
+                gen, images, gt_boxes, gt_labels, gt_mask, augment_cfg, shard)
+        with global_batch_statistics(group):
+            loc, cls = model(images)
         lb = detection_loss(bundle, loc, cls, gt_boxes, gt_labels, gt_mask)
         state.optimizer.zero_grad(set_to_none=True)
         lb.total.backward()
+        if group is not None:
+            mean_over_ranks_([p.grad for p in model.parameters()], group)
         norm = apply_gradients(state)
         if ema_decay > 0:
             ema_update(state, ema_decay)
-        return {
-            "loss": lb.total.detach(),
-            "conf_loss": lb.conf.detach(),
-            "loc_loss": lb.loc.detach(),
-            "grad_norm": norm,
-        }
+        return loss_metrics(lb, norm, group)
 
     return step
 

@@ -25,36 +25,48 @@ seeded by (seed, step), so a resumed run draws what an uninterrupted one
 would. `python -m bdd100k_tpu_torch.scripts.export_weights` turns a run
 into the `.npz` artifact that evaluate and infer load.
 
-`--synthetic N --synthetic_dir D` trains on the first N scenes of the
-complete `train` split the reference's generator wrote in D. Without
-`--synthetic_dir`, `--synthetic N` trains on N scenes rendered in memory,
-the pixels before the reference's JPEG encode (the port has no JPEG
-encoder to write the files yet: ROADMAP Queue 1 item 14).
+`--synthetic N` trains on the first N scenes of the `train` split in
+`--synthetic_dir`, generated there first (JPEG files, the reference's
+bytes) when the split holds fewer.
+
+Data-parallel training runs one process per GPU:
+
+    torchrun --nproc_per_node 8 -m bdd100k_tpu_torch.train --multihost \\
+        --config ssd_mobilenet_300 --labels ... --image_dir ... \\
+        --batch_size 256 [--step_impl shard_map]
+
+`--batch_size` is the global batch: each rank decodes its batch_size /
+world rows from its strided shard of the records, and the step reduces
+over the ranks (`--step_impl pjit`: global-batch BatchNorm statistics and
+shared augment draws, what one process computes on the whole batch;
+`shard_map`: local BatchNorm statistics and per-rank draws). Every rank
+builds the same seeded model and restores the same checkpoint, and rank
+0's weights are broadcast before the first step; rank 0 writes the logs
+and checkpoints.
 """
 
 from __future__ import annotations
 
 import argparse
+import os
+import tempfile
 import time
 from pathlib import Path
 
-import numpy as np
 import torch
 
 from bdd100k_tpu_torch.configs import TrainConfig, apply_yolo_priors, get_config
 from bdd100k_tpu_torch.data.augment import AugmentConfig
 from bdd100k_tpu_torch.data.pipeline import (
     DetectionDataset,
-    InMemoryDataset,
     make_loader,
     prefetch_to_device,
     resolve_wire,
 )
-from bdd100k_tpu_torch.data.synthetic import (
-    ensure_synthetic_dataset,
-    generate_synthetic_scenes,
-)
+from bdd100k_tpu_torch.data.synthetic import ensure_synthetic_dataset
 from bdd100k_tpu_torch.models.detector import build_detector
+from bdd100k_tpu_torch.parallel import mesh
+from bdd100k_tpu_torch.parallel.shard_map_step import make_shardmap_train_step
 from bdd100k_tpu_torch.parallel.train_step import (
     create_train_state,
     make_eval_step,
@@ -62,7 +74,7 @@ from bdd100k_tpu_torch.parallel.train_step import (
 )
 from bdd100k_tpu_torch.utils import pretrained
 from bdd100k_tpu_torch.utils.checkpoint import CheckpointManager
-from bdd100k_tpu_torch.utils.device import resolve_device
+from bdd100k_tpu_torch.utils.device import resolve_device, strict_f32
 from bdd100k_tpu_torch.utils.metrics import MetricsLogger
 
 
@@ -82,14 +94,13 @@ def parse_args(argv=None):
     p.add_argument("--grain_workers", type=int, default=0,
                    help="not ported yet (record shards, ROADMAP Queue 1 item 12)")
     p.add_argument("--synthetic", type=int, default=0,
-                   help="train on N synthetic scenes: the first N of "
-                        "--synthetic_dir's train split, or, without it, N "
-                        "scenes rendered in memory (their pixels before the "
-                        "reference's JPEG encode: writing the JPEGs waits "
-                        "for ROADMAP Queue 1 item 14)")
-    p.add_argument("--synthetic_dir", default=None,
-                   help="a directory the reference's generator wrote a "
-                        "complete train split into (read, never written)")
+                   help="generate N synthetic images instead of real data")
+    p.add_argument("--synthetic_dir",
+                   default=os.path.join(tempfile.gettempdir(), "bdd_synth"),
+                   help="where --synthetic's train split lives, written "
+                        "there when short (default: bdd_synth in the "
+                        "temporary directory, /tmp/bdd_synth as the "
+                        "reference's when TMPDIR is unset)")
     p.add_argument("--batch_size", type=int, default=32)
     p.add_argument("--total_steps", type=int, default=120_000)
     p.add_argument("--lr", type=float, default=1e-3)
@@ -116,7 +127,9 @@ def parse_args(argv=None):
     p.add_argument("--num_workers", type=int, default=8,
                    help="threads of the JPEG decode pool")
     p.add_argument("--mesh_data", type=int, default=None,
-                   help="not ported yet (multi-GPU, ROADMAP Queue 1 item 11)")
+                   help="the data axis's length: one process per GPU, so "
+                        "it must equal the world size (default: the world "
+                        "size)")
     p.add_argument("--resume", action="store_true", default=True)
     p.add_argument("--no_resume", dest="resume", action="store_false")
     p.add_argument("--profile_steps", default=None,
@@ -135,7 +148,9 @@ def parse_args(argv=None):
                         "or a torch .pth/.bin state_dict (torchvision vgg16 "
                         "or HF MobileNetV1, picked by the config's backbone)")
     p.add_argument("--multihost", action="store_true",
-                   help="not ported yet (ROADMAP Queue 1 item 11)")
+                   help="join the torch.distributed group that torchrun's "
+                        "environment names (NCCL on CUDA, gloo on the CPU) "
+                        "and train data-parallel over its ranks")
     p.add_argument("--wire", choices=("auto", "rgb", "yuv420"), default="auto",
                    help="host->card wire for decoded frames; yuv420 halves "
                         "the bytes (the card rebuilds RGB before the augment). "
@@ -145,9 +160,12 @@ def parse_args(argv=None):
                         "as TensorBoard image summaries (when tensorboard "
                         "imports; 0 = off)")
     p.add_argument("--step_impl", choices=("pjit", "shard_map"), default="pjit",
-                   help="the reference's data-parallel step forms; the port "
-                        "has one single-card step (shard_map: ROADMAP Queue 1 "
-                        "item 11)")
+                   help="the data-parallel step under --multihost: pjit "
+                        "(global-batch BatchNorm, shared augment draws) or "
+                        "shard_map (local BatchNorm, per-rank draws)")
+    p.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                   help="the convs' working type; float32 turns TF32 off, "
+                        "for comparisons at f32")
     p.add_argument("--device", default="cuda",
                    help="cuda (the default; raises without CUDA) or cpu")
     return p.parse_args(argv)
@@ -159,9 +177,6 @@ def refuse_unported(args) -> None:
     later = []
     if args.records_dir is not None or args.grain_workers:
         later.append(("--records_dir/--grain_workers", "item 12 (record shards)"))
-    if args.multihost or args.mesh_data is not None or args.step_impl != "pjit":
-        later.append(("--multihost/--mesh_data/--step_impl",
-                      "item 11 (multi-GPU and multi-host)"))
     if later:
         raise SystemExit("not ported yet: " + "; ".join(
             f"{flag}, ROADMAP Queue 1 {item}" for flag, item in later))
@@ -172,15 +187,9 @@ def step_seed(seed: int, step: int) -> int:
     return (seed * 1_000_003 + step) % (1 << 63)
 
 
-def make_dataset(args) -> DetectionDataset | InMemoryDataset:
+def make_dataset(args) -> DetectionDataset:
     """The training set the flags name (reference: train.py::make_dataset)."""
     decode_size = args.decode_size or None
-    if args.synthetic and args.synthetic_dir is None:
-        frames, boxes, labels = generate_synthetic_scenes(args.synthetic,
-                                                          seed=args.seed)
-        print("rendered in memory: JPEG files need ROADMAP Queue 1 item 14's "
-              "encoder", flush=True)
-        return InMemoryDataset(frames, boxes, labels, args.max_boxes)
     if args.synthetic:
         labels = ensure_synthetic_dataset(args.synthetic_dir,
                                           num_images=args.synthetic,
@@ -240,7 +249,9 @@ class StepProfile:
         self.start, self.stop = (int(x) for x in spec.split(","))
         if not 0 <= self.start < self.stop:
             raise SystemExit(f"--profile_steps {spec!r}: need start < stop")
-        self.path = Path(ckpt_dir) / "profile" / f"trace_{self.start}_{self.stop}.json"
+        rank = f"_rank{mesh.data_rank()}" if mesh.data_size() > 1 else ""
+        self.path = (Path(ckpt_dir) / "profile"
+                     / f"trace_{self.start}_{self.stop}{rank}.json")
         self.device = device
         self._prof = None
         self._t0 = 0.0
@@ -278,9 +289,29 @@ def main(argv=None):
     args = parse_args(argv)
     refuse_unported(args)
     device = resolve_device(args.device)
-    # anomaly detection for this run only: restored on the way out
-    with torch.autograd.set_detect_anomaly(args.debug_nans):
-        return train(args, device)
+    if args.multihost:
+        device = mesh.init_distributed(device)
+    try:
+        # anomaly detection and the f32 mode for this run only: restored on
+        # the way out
+        with torch.autograd.set_detect_anomaly(args.debug_nans), \
+                strict_f32(args.dtype == "float32"):
+            return train(args, device)
+    finally:
+        if args.multihost:
+            mesh.shutdown()
+
+
+def broadcast_weights(state, group) -> None:
+    """Rank 0's parameters, BatchNorm statistics and EMA shadow on every
+    rank. Every rank builds the same seeded model and restores the same
+    checkpoint, so this changes nothing when they agree; it makes them
+    agree when an initialiser or a file read differs across hosts."""
+    tensors = [*state.model.parameters(), *state.model.buffers(),
+               *(state.ema_params or [])]
+    with torch.no_grad():
+        for t in tensors:
+            torch.distributed.broadcast(t.data, src=0, group=group)
 
 
 def train(args, device: torch.device):
@@ -307,7 +338,19 @@ def train(args, device: torch.device):
         **lr_kw,
     )
 
-    bundle = build_detector(det_cfg, device=device, seed=train_cfg.seed)
+    nproc = mesh.resolve_mesh_data(args.mesh_data)
+    if args.multihost:
+        print(f"data axis: {nproc} process(es), this is rank "
+              f"{mesh.data_rank()} on {device}", flush=True)
+    if train_cfg.batch_size % nproc:
+        raise SystemExit(
+            f"--batch_size {train_cfg.batch_size} must be divisible by the "
+            f"process count {nproc}")
+    group = mesh.train_group()
+
+    dtype = torch.float32 if args.dtype == "float32" else torch.bfloat16
+    bundle = build_detector(det_cfg, dtype=dtype, device=device,
+                            seed=train_cfg.seed)
     state = create_train_state(bundle, train_cfg)
     ckpt = CheckpointManager(args.ckpt_dir, keep=train_cfg.keep_checkpoints)
     start_step = 0
@@ -317,6 +360,8 @@ def train(args, device: torch.device):
             print(f"resumed from step {start_step}", flush=True)
     if args.pretrained_backbone and not start_step:
         seed_backbone(state, det_cfg, args.pretrained_backbone)
+    if group is not None:
+        broadcast_weights(state, group)
 
     dataset = make_dataset(args)
     print(f"dataset: {len(dataset)} images", flush=True)
@@ -324,22 +369,31 @@ def train(args, device: torch.device):
     print(f"wire format: {wire}", flush=True)
     # one batch a step: the loader's position is a function of the step,
     # so a resumed run continues the exact shuffle
-    loader = make_loader(dataset, train_cfg.batch_size, shuffle=True,
+    # (under --multihost each rank reads its batch_size / nproc rows)
+    loader = make_loader(dataset, train_cfg.batch_size // nproc, shuffle=True,
                          seed=train_cfg.seed, skip_steps=start_step,
-                         num_workers=args.num_workers, wire_format=wire)
+                         num_workers=args.num_workers, wire_format=wire,
+                         process_index=mesh.data_rank(), process_count=nproc)
     batches = prefetch_to_device(loader, device)
-    step_fn = make_train_step(
+    # one process has nothing to reduce: both step forms are the plain step
+    make_step = (make_shardmap_train_step if args.step_impl == "shard_map"
+                 and group is not None else make_train_step)
+    step_fn = make_step(
         bundle, AugmentConfig(out_size=det_cfg.image_size),
-        ema_decay=args.ema_decay, device=device)
+        ema_decay=args.ema_decay, device=device, group=group)
     eval_fn = None
     if args.image_summary_every:
-        if wire != "rgb":
+        if nproc > 1:
+            # each rank holds only its rows of the batch
+            print("image summaries disabled under multi-host", flush=True)
+        elif wire != "rgb":
             # the summary draws on the batch's frames; planar batches would
             # need an RGB rebuild on the host
             print("image summaries disabled with --wire yuv420", flush=True)
         else:
             eval_fn = make_eval_step(bundle)
-    logger = MetricsLogger(args.ckpt_dir, "train")
+    logger = MetricsLogger(args.ckpt_dir, "train",
+                           write_files=mesh.data_rank() == 0)
     prof = (StepProfile(args.profile_steps, args.ckpt_dir, device)
             if args.profile_steps else None)
     gen = torch.Generator(device=device)

@@ -6,6 +6,9 @@ The format is the port's own: one `torch.save` file per step,
 optimizer, ema}. It is not the reference's orbax layout and neither side
 reads the other's. A file is written under a temporary name and renamed,
 so a crash never leaves a half-written latest checkpoint.
+
+In a multi-process run (`parallel/mesh.py`) rank 0 writes and every rank
+waits for it at a barrier; every rank restores, from the same directory.
 """
 
 from __future__ import annotations
@@ -15,6 +18,8 @@ import re
 from pathlib import Path
 
 import torch
+
+from bdd100k_tpu_torch.parallel import mesh
 
 _NAME = re.compile(r"^ckpt_(\d+)\.pt$")
 
@@ -36,19 +41,22 @@ class CheckpointManager:
         return steps[-1] if steps else None
 
     def save(self, step: int, state) -> None:
-        """Write the state at `step` and drop all but the newest `keep`."""
-        payload = {
-            "step": step,
-            "model": state.model.state_dict(),
-            "optimizer": state.optimizer.state_dict(),
-            "ema": state.ema_params,
-        }
-        path = self.directory / f"ckpt_{step}.pt"
-        tmp = path.with_suffix(f".{os.getpid()}.tmp")
-        torch.save(payload, tmp)
-        os.replace(tmp, path)
-        for old in self.all_steps()[:-self.keep]:
-            (self.directory / f"ckpt_{old}.pt").unlink(missing_ok=True)
+        """Write the state at `step` and drop all but the newest `keep`
+        (rank 0), then wait at the barrier (every rank)."""
+        if mesh.data_rank() == 0:
+            payload = {
+                "step": step,
+                "model": state.model.state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "ema": state.ema_params,
+            }
+            path = self.directory / f"ckpt_{step}.pt"
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            torch.save(payload, tmp)
+            os.replace(tmp, path)
+            for old in self.all_steps()[:-self.keep]:
+                (self.directory / f"ckpt_{old}.pt").unlink(missing_ok=True)
+        mesh.barrier()
 
     def restore_latest(self, state) -> int:
         """Load the newest checkpoint into `state` in place → its step, or

@@ -10,7 +10,8 @@ keeps the pixels the same wherever the port runs. The same library holds
 `csrc/jpeg/jfull.cc`, the full-resolution decode of one JPEG,
 `csrc/resample.cc`, PIL's default `Image.resize` (floating point without
 fused multiply-adds, as Pillow's own build computes its weights), and
-`csrc/png.cc`, the PNG decoder's scanline unfiltering.
+`csrc/png.cc`, the PNG decoder's scanline unfiltering, and
+`csrc/jpeg/jencode.cc`, the baseline JPEG encoder (libjpeg-turbo's bytes).
 
 One g++ call builds the sources into `bdd100k_tpu_torch/_build/`, keyed by
 a hash of the sources, the header and the flags, at first use. A failed
@@ -32,7 +33,8 @@ from bdd100k_tpu_torch.utils.cuda_build import BUILD_DIR, CSRC
 
 ROOT = CSRC.parent.parent
 SOURCES = (ROOT / "native" / "decode_pool.cc", CSRC / "jpeg" / "jdecode.cc",
-           CSRC / "jpeg" / "jfull.cc", CSRC / "resample.cc", CSRC / "png.cc")
+           CSRC / "jpeg" / "jfull.cc", CSRC / "resample.cc", CSRC / "png.cc",
+           CSRC / "jpeg" / "jencode.cc")
 HEADERS = (CSRC / "jpeg" / "jpeglib.h",)
 FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17", "-pthread", "-ffp-contract=off",
          "-I", str(CSRC / "jpeg")]
@@ -57,6 +59,8 @@ SIGNATURES = {
     "rs_resize_bicubic": ([_P, _I, _I, _I, _I, _I, _I, _P], ctypes.c_int),
     # filtered rows, rows, stride, bytes a pixel, out (png.cc)
     "png_unfilter": ([ctypes.c_char_p, _I, _I, _I, _P], ctypes.c_int),
+    # rgb, h, w, quality, out, capacity (long) (jencode.cc)
+    "je_encode_rgb": ([_P, _I, _I, _I, _P, ctypes.c_long], ctypes.c_long),
 }
 
 _lib: ctypes.CDLL | None = None

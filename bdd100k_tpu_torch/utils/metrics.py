@@ -29,20 +29,26 @@ def _tensorboard_writer(log_dir: Path):
 
 class MetricsLogger:
     def __init__(self, run_dir: str | Path, name: str = "train",
-                 stdout: bool = True):
+                 stdout: bool = True, write_files: bool = True):
+        """`write_files=False` for every rank but 0 of a multi-process run:
+        it keeps its stdout lines and writes neither the JSONL nor
+        TensorBoard, so one writer owns the files."""
         self.run_dir = Path(run_dir)
         self.run_dir.mkdir(parents=True, exist_ok=True)
-        self._file = open(self.run_dir / f"{name}.jsonl", "a", buffering=1)
+        self._file = (open(self.run_dir / f"{name}.jsonl", "a", buffering=1)
+                      if write_files else None)
         self.stdout = stdout
         self._t0 = time.monotonic()
-        self._tb = None  # made at the first image; False when unavailable
+        # made at the first image; False when unavailable or not the writer
+        self._tb = None if write_files else False
 
     def log(self, step: int, metrics: dict) -> None:
         """One record {step, t (seconds since the logger started), the
         scalar metrics}."""
         scalars = {k: float(v) for k, v in metrics.items()}
         rec = {"step": int(step), "t": time.monotonic() - self._t0, **scalars}
-        self._file.write(json.dumps(rec) + "\n")
+        if self._file is not None:
+            self._file.write(json.dumps(rec) + "\n")
         if self.stdout:
             body = " ".join(f"{k}={v:.5g}" for k, v in scalars.items())
             print(f"step {step}: {body}", flush=True)
@@ -56,6 +62,7 @@ class MetricsLogger:
             self._tb.add_image(name, np.asarray(image), int(step), dataformats="HWC")
 
     def close(self) -> None:
-        self._file.close()
+        if self._file is not None:
+            self._file.close()
         if self._tb:
             self._tb.close()

@@ -45,7 +45,16 @@ depthwise and NMS kernels held to their plain versions on that path,
 int8_static serving beside bf16, the serving CLI with --calib_images of
 JPEGs and PNGs against the reference CLI's lines, the PNG decoder against
 PIL's sha256s, and progressive JPEGs cut before their last scans against
-the reference pool's smoothed decodes.
+the reference pool's smoothed decodes. Then slice 10: the JPEG encoder
+on the 64 seed-1 renders against the committed JPEGs' sha256s (timed on
+the card's host), `--synthetic 8` writing the reference's split and the
+trainer taking 3 steps from it, `infer --out_dir` writing det_<name>.jpg
+with the bytes of PIL's save of the reference's detections drawn, the
+trainer under --multihost at a world of one rank on NCCL for both step
+forms against the plain trainer (losses within 1e-6 in f32), two ranks on
+this card over gloo against one process, and the eval over two ranks,
+its merged mAP the single-process one. Phases that need other processes
+run this file again as `--worker`.
 Each path is checked to have run through its kernels and to give the
 right output. NMS and the matcher are also held bit-equal at the edges of
 what they take (K from 1 to 256, greedy-trap chains; zero-area and
@@ -1531,10 +1540,11 @@ def run_trainer(train_mod, argv, log_path: Path) -> str:
 
 def phase_train_bf16(torch, dw, matcher) -> dict:
     """The training main path: the driver at full width and batch 32 on 64
-    rendered seed-0 train scenes (uint8 720p, augment on the card), 40
-    steps from the seeded init with a checkpoint at step 20; then a second
-    run given only that checkpoint resumes and ends at 40. The runs keep
-    an EMA shadow, which `phase_eval_own_ckpt` evaluates."""
+    seed-0 synthetic train scenes (`--synthetic 64`: the split the trainer
+    writes as JPEGs into SYNTH_TRAIN_DIR, decoded at 720p, augment on the
+    card), 40 steps from the seeded init with a checkpoint at step 20; then
+    a second run given only that checkpoint resumes and ends at 40. The
+    runs keep an EMA shadow, which `phase_eval_own_ckpt` evaluates."""
     import shutil
 
     from bdd100k_tpu_torch import train as train_mod
@@ -1542,6 +1552,7 @@ def phase_train_bf16(torch, dw, matcher) -> dict:
     shutil.rmtree(RUNS, ignore_errors=True)
     first, second = RUNS / "train", RUNS / "resume"
     argv = ["--config", CONFIG, "--synthetic", str(TRAIN_SCENES),
+            "--synthetic_dir", str(SYNTH_TRAIN_DIR),
             "--batch_size", str(TRAIN_BATCH), "--total_steps", str(TRAIN_STEPS),
             "--warmup_steps", "0", "--log_every", "1",
             "--checkpoint_every", str(RESUME_AT), "--seed", "0",
@@ -1793,8 +1804,9 @@ def phase_matcher_at(torch, matcher, matching, anchors, b: int, sets: dict,
 def phase_trainer_bf16(torch, dw, matcher, config: str, batch: int, steps: int,
                        scenes: int, phase: str) -> dict:
     """A training main path: the trainer at full width on `scenes`
-    rendered seed-0 train scenes (uint8 720p, augment to the config's size
-    on the card), `steps` steps from the seeded init: finite losses, one
+    seed-0 synthetic train scenes (the JPEG split in SYNTH_TRAIN_DIR,
+    decoded at 720p, augment to the config's size on the card), `steps`
+    steps from the seeded init: finite losses, one
     matcher launch and the config's depthwise forward, dx and dk launches
     a step (9 + 9 + 9 for MobileNet, none for VGG16), step times and peak
     device memory."""
@@ -1805,7 +1817,7 @@ def phase_trainer_bf16(torch, dw, matcher, config: str, batch: int, steps: int,
     run_dir = RUNS / phase
     shutil.rmtree(run_dir, ignore_errors=True)
     argv = ["--config", config, "--synthetic", str(scenes),
-            "--batch_size", str(batch),
+            "--synthetic_dir", str(SYNTH_TRAIN_DIR), "--batch_size", str(batch),
             "--total_steps", str(steps), "--warmup_steps", "0",
             "--log_every", "1", "--checkpoint_every", str(steps),
             "--seed", "0", "--ckpt_dir", str(run_dir), "--no_resume"]
@@ -2196,14 +2208,14 @@ def phase_infer_cli() -> dict:
                          os.path.relpath(VGG_ARTIFACT), "--image_dir",
                          os.path.relpath(eight), "--batch_size", "8",
                          "--out_dir", os.path.relpath(drawn)], logs / "out_dir.txt")
-    pngs = sorted(drawn.glob("det_*.png"))
-    if [p.name for p in pngs] != [f"det_{Path(n).stem}.png" for n in names[:8]] or \
-            not all(p.read_bytes()[:8] == b"\x89PNG\r\n\x1a\n" for p in pngs):
-        raise AssertionError(f"--out_dir wrote {[p.name for p in pngs]}")
+    jpgs = sorted(drawn.glob("det_*"))  # det_<name>, JPEGs as the inputs are
+    if [p.name for p in jpgs] != [f"det_{n}" for n in names[:8]] or \
+            not all(p.read_bytes()[:3] == b"\xff\xd8\xff" for p in jpgs):
+        raise AssertionError(f"--out_dir wrote {[p.name for p in jpgs]}")
     emit("infer_cli", command="python -m bdd100k_tpu_torch.infer",
          scenes=len(names), batch=EVAL_BATCH, line_tol=CLI_LINE_TOL,
          threshold=CLI_THRESHOLD, near_tie_band=CLI_TIE, lines_agree=True,
-         out_dir_pngs=len(pngs), **out)
+         out_dir_jpegs=len(jpgs), **out)
     return out
 
 
@@ -3196,6 +3208,510 @@ def run_int8_phases(torch, infer, nms, dw, nproc: int, frames) -> dict:
                 path=path, cli=cli, png=png)
 
 
+# ----------------------------------------------------------- slice 10
+# the JPEG encoder, the synthetic split written as the reference writes it,
+# drawn outputs as JPEGs, and data parallelism over torch.distributed
+
+JPEG_FIXTURE = ROOT / "tests" / "fixtures" / "torch_ref_jpeg_encode.json"
+SYNTH_TRAIN_DIR = RUNS / "synth_train"  # the seed-0 train split the trainers write
+DP_STEPS = 8              # dp_world1: steps a run, profiled 2-4
+DP_PROFILE = (2, 4)
+DP_TWO_B = 16             # dp_two_ranks: the global batch, 8 a rank
+DP_TWO_STEPS = 3
+DP_LOSS_RTOL = 1e-6       # dp_world1: a world of one computes the plain step
+# dp_two_ranks: one process against two ranks, f32 with other summation
+# orders. The first step sees the same weights and batch: its loss (the
+# global BatchNorm statistics) and its grad norm (the all-reduced
+# gradients, before the clip hides their scale; a sum for a mean would be
+# off by 1.0) are held at DP_TWO_LOSS0_RTOL and DP_TWO_NORM0_RTOL, with
+# room over the 7.4e-8 and 1.05e-4 measured on an H100 80GB HBM3 at
+# 700 W. The grad norm moves more: f32
+# BatchNorm's fast variance E[x²] − E[x]² cancels on SSD300's 1×1–5×5
+# extra maps (16 values a channel at 1×1), and the backward through
+# rsqrt(var + eps) carries that rounding. Later steps amplify it
+# ~100-fold a step, so the 3-step losses and weights are held against a
+# control: the same one process with its batch's two halves swapped, the
+# same loss summed in another order. On that card the two ranks drifted
+# 5.9× and 7.9× as far as the control in the step-2 and
+# step-3 losses and 1.2× in the weights' L2 distance over the update's
+# norm (0.126 against 0.108): the ranks' first-step rounding is larger
+# than the swap's (which leaves the forward bit-equal), the growth alike
+DP_TWO_LOSS0_RTOL = 1e-6
+DP_TWO_NORM0_RTOL = 1e-3
+DP_TWO_CONTROL = 16.0
+DP_TWO_FLOOR = 1e-4
+WORKER_TIMEOUT = 600
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def spawn_ranks(worker_argv: list[str], world: int, log_stem: str,
+                extra_env: dict | None = None) -> list[str]:
+    """`python3 chip_smoke.py --worker ...` as `world` ranks (the env
+    torchrun sets, every rank on this card: LOCAL_RANK 0) → each rank's
+    stdout; a rank that fails or outlives WORKER_TIMEOUT raises, and every
+    rank is stopped."""
+    import os
+
+    port = str(free_port())
+    procs = []
+    for rank in range(world):
+        env = {**os.environ, **(extra_env or {}), "MASTER_ADDR": "localhost",
+               "MASTER_PORT": port, "WORLD_SIZE": str(world), "RANK": str(rank),
+               "LOCAL_RANK": "0"}
+        procs.append(subprocess.Popen(
+            [sys.executable, str(Path(__file__).resolve()), "--worker", *worker_argv],
+            cwd=ROOT, env=env, text=True, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=WORKER_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, out in enumerate(outs):
+        (RUNS / f"{log_stem}_rank{rank}.txt").write_text(out)
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        raise AssertionError(f"{log_stem}: ranks {bad} failed:\n"
+                             + "\n".join(outs[r][-3000:] for r in bad))
+    return outs
+
+
+def worker_report(out: str) -> dict:
+    """The JSON line a worker prints last."""
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def worker_module(argv: list[str]) -> int:
+    """`--worker module M ARGS`: `M.main(ARGS)` as `python -m M ARGS` runs
+    it, then one JSON line: the kernel launches this process made (its
+    counts start at 0) and the mAP of a result. cuDNN is held to its
+    deterministic algorithms, so two runs of one computation agree."""
+    import importlib
+
+    import torch
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    from bdd100k_tpu_torch.ops import depthwise as dw
+    from bdd100k_tpu_torch.ops import matcher, nms
+
+    result = importlib.import_module(argv[0]).main(argv[1:])
+    report = {"launches": {**dw.LAUNCHES, **matcher.LAUNCHES, **nms.LAUNCHES}}
+    if isinstance(result, dict):
+        report["result"] = {k: result[k] for k in ("mAP", "num_images", "num_hosts")
+                            if k in result}
+    print(json.dumps(report), flush=True)
+    return 0
+
+
+def phase_jpeg_encode() -> dict:
+    """The encoder on the card's host: the 64 seed-1 renders at quality 90
+    give the committed fixture JPEGs (the reference's PIL bytes), all 64
+    sha256s; each 720p encode timed."""
+    import hashlib
+
+    from bdd100k_tpu_torch.data.jpeg_encode import encode_jpeg
+    from bdd100k_tpu_torch.data.synthetic import generate_synthetic_scenes
+
+    t0 = time.perf_counter()
+    frames, _, _ = generate_synthetic_scenes(EVAL_SCENES, seed=1)
+    render_s = time.perf_counter() - t0
+    encode_jpeg(frames[0], 90)  # builds the host library if it must
+    ms, equal = [], 0
+    for i, frame in enumerate(frames):
+        t = time.perf_counter()
+        data = encode_jpeg(frame, 90)
+        ms.append((time.perf_counter() - t) * 1e3)
+        want = (SYNTH_DIR / "images" / "val" / f"synthetic_val_{i:05d}.jpg").read_bytes()
+        equal += hashlib.sha256(data).digest() == hashlib.sha256(want).digest()
+    if equal != EVAL_SCENES:
+        raise AssertionError(f"jpeg_encode: {equal}/{EVAL_SCENES} sha256s equal")
+    stats = dict(p10=float(np.percentile(ms, 10)), p50=float(np.percentile(ms, 50)),
+                 p90=float(np.percentile(ms, 90)), max=float(max(ms)))
+    emit("jpeg_encode", frames=EVAL_SCENES, shape=list(frames.shape[1:]),
+         quality=90, sha256_equal=equal, encode_ms=stats, render_s=render_s)
+    return stats
+
+
+def phase_synthetic_write(torch, dw, matcher, nproc: int) -> dict:
+    """`ensure_synthetic_dataset` writes an 8-image seed-0 train split into
+    a fresh directory, its files' sha256s the reference generator's; then
+    the trainer (`python -m bdd100k_tpu_torch.train --synthetic 8
+    --synthetic_dir <it>`, its main called in this process) trains SSD300
+    at B=8 for 3 steps from those files."""
+    import hashlib
+    import shutil
+
+    from bdd100k_tpu_torch.data.synthetic import ensure_synthetic_dataset
+
+    d = RUNS / "synth_write"
+    shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    ensure_synthetic_dataset(d, num_images=8, seed=0)
+    write_s = time.perf_counter() - t0
+    want = json.loads(JPEG_FIXTURE.read_text())["synthetic_train_seed0_8_sha256"]
+    got = {str(p.relative_to(d)): hashlib.sha256(p.read_bytes()).hexdigest()
+           for p in sorted(d.rglob("*")) if p.is_file()}
+    if got != want:
+        raise AssertionError(f"synthetic_write: files differ: "
+                             f"{sorted(k for k in set(got) | set(want) if got.get(k) != want.get(k))}")
+    steps = 3
+    run_dir = RUNS / "synth_write_run"
+    argv = ["--config", CONFIG, "--synthetic", "8", "--synthetic_dir", str(d),
+            "--batch_size", "8", "--total_steps", str(steps), "--warmup_steps", "0",
+            "--log_every", "1", "--checkpoint_every", str(steps), "--seed", "0",
+            "--num_workers", str(nproc), "--ckpt_dir", str(run_dir), "--no_resume"]
+    out, log, launches = run_files_trainer(torch, dw, matcher, argv,
+                                           "synthetic_write", steps, 9)
+    if "dataset: 8 images" not in out:
+        raise AssertionError("synthetic_write: the trainer did not read 8 images")
+    emit("synthetic_write", files=len(got), sha256_equal=len(got), write_s=write_s,
+         train_steps=steps, batch=8, losses={s: log[s]["loss"] for s in log},
+         launches=launches)
+    return dict(launches=launches)
+
+
+def phase_infer_out_jpeg() -> dict:
+    """`python -m bdd100k_tpu_torch.infer --out_dir` (f32, TF32 off) on two
+    committed JPEGs: each det_<name>.jpg equals, by sha256, PIL's
+    quality-75 save of the reference CLI's f32 detections drawn."""
+    import hashlib
+    import shutil
+
+    want = json.loads(JPEG_FIXTURE.read_text())["infer_out_sha256"]
+    src, out = RUNS / "infer_out_in", RUNS / "infer_out"
+    for p in (src, out):
+        shutil.rmtree(p, ignore_errors=True)
+    src.mkdir(parents=True)
+    for name in want:
+        shutil.copy(SYNTH_DIR / "images" / "val" / name, src / name)
+    t0 = time.perf_counter()
+    outs = spawn_ranks(["module", "bdd100k_tpu_torch.infer", "--config", CONFIG,
+                        "--ckpt_dir", str(ARTIFACT), "--image_dir", str(src),
+                        "--batch_size", "2", "--dtype", "float32",
+                        "--out_dir", str(out)], 1, "infer_out_jpeg")
+    wall = time.perf_counter() - t0
+    launches = worker_report(outs[0])["launches"]
+    got = {p.name: hashlib.sha256(p.read_bytes()).hexdigest() for p in sorted(out.iterdir())}
+    if got != {f"det_{n}": h for n, h in want.items()}:
+        raise AssertionError(f"infer_out_jpeg: {got} against {want}")
+    if launches["greedy_suppress"] < 1 or launches["depthwise3x3_s1"] < 9:
+        raise AssertionError(f"infer_out_jpeg launches {launches}")
+    emit("infer_out_jpeg", files=sorted(got), sha256_equal=len(got),
+         launches=launches, wall_s=wall)
+    return dict(launches=launches)
+
+
+def trace_kernel_counts(trace: Path) -> dict:
+    """Launches in a torch.profiler trace, by the port's kernel names."""
+    names = {"depthwise3x3_s1": "dw3x3_s1_kernel",
+             "depthwise3x3_s1_fgrad": "dw3x3_s1_fgrad_kernel",
+             "encode_targets": "match_encode"}
+    counts = dict.fromkeys(names, 0)
+    for e in json.loads(trace.read_text())["traceEvents"]:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            for k, n in names.items():
+                counts[k] += n in e.get("name", "")
+    return counts
+
+
+def dp_trainer_argv(run_dir: Path, nproc: int, *extra: str) -> list[str]:
+    return ["--config", CONFIG, "--synthetic", str(TRAIN_SCENES),
+            "--synthetic_dir", str(SYNTH_TRAIN_DIR), "--decode_size", "512",
+            "--batch_size", str(TRAIN_BATCH), "--total_steps", str(DP_STEPS),
+            "--warmup_steps", "0", "--log_every", "1",
+            "--checkpoint_every", str(DP_STEPS), "--seed", "0",
+            "--dtype", "float32", "--num_workers", str(nproc),
+            "--profile_steps", ",".join(map(str, DP_PROFILE)),
+            "--ckpt_dir", str(run_dir), "--no_resume", *extra]
+
+
+def phase_dp_world1(torch, dw, matcher, nproc: int) -> dict:
+    """The trainer under --multihost at a world of one rank on NCCL (a
+    subprocess with the env torchrun sets), SSD300 B=32 in f32, once per
+    --step_impl, against the plain trainer in this process from the same
+    seed: the losses agree within DP_LOSS_RTOL (one rank's collectives
+    change no value); each run's depthwise, dk and matcher launches a step
+    from its torch.profiler trace and from the kernels' counts; the step
+    and the card's busy time a step beside the plain run's."""
+    plain_dir = RUNS / "dp_plain"
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        out, plain_log, plain_launches = run_files_trainer(
+            torch, dw, matcher, dp_trainer_argv(plain_dir, nproc), "dp_plain",
+            DP_STEPS, 9)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    skip = set(range(DP_PROFILE[0] + 1, DP_PROFILE[1] + 1))
+    busy = trace_busy(out)
+    runs = {"plain": dict(losses={s: plain_log[s]["loss"] for s in plain_log},
+                          launches=plain_launches,
+                          profiled=trace_kernel_counts(ROOT / busy["trace"]),
+                          busy=busy, step=step_stats(plain_log, TRAIN_BATCH, skip))}
+    for impl in ("pjit", "shard_map"):
+        run_dir = RUNS / f"dp_{impl}"
+        outs = spawn_ranks(["module", "bdd100k_tpu_torch.train",
+                            *dp_trainer_argv(run_dir, nproc, "--multihost",
+                                             "--step_impl", impl)],
+                           1, f"dp_world1_{impl}")
+        rep = worker_report(outs[0])
+        log = read_log(run_dir / "train.jsonl")
+        busy = trace_busy(outs[0])
+        runs[impl] = dict(losses={s: log[s]["loss"] for s in log},
+                          launches={k: rep["launches"][k] for k in plain_launches},
+                          profiled=trace_kernel_counts(ROOT / busy["trace"]),
+                          busy=busy, step=step_stats(log, TRAIN_BATCH, skip))
+        if "data axis: 1 process(es)" not in outs[0]:
+            raise AssertionError(f"dp_world1 {impl}: not a world of one rank")
+    window = DP_PROFILE[1] - DP_PROFILE[0]
+    for name, r in runs.items():
+        per_step = {k: v / DP_STEPS for k, v in r["launches"].items()}
+        traced = {k: v / window for k, v in r["profiled"].items()}
+        want = dict(depthwise3x3_s1=18, depthwise3x3_s1_fgrad=9, encode_targets=1)
+        if per_step != want or traced != want:
+            raise AssertionError(f"dp_world1 {name}: launches a step {per_step}, "
+                                 f"in the trace {traced}")
+        if name != "plain":
+            rel = max(abs(r["losses"][s] / plain_log[s]["loss"] - 1) for s in plain_log)
+            r["loss_rel_diff_vs_plain"] = rel
+            if not rel <= DP_LOSS_RTOL:
+                raise AssertionError(f"dp_world1 {name}: losses differ from the "
+                                     f"plain trainer's by {rel}")
+    emit("dp_world1", config=CONFIG, batch=TRAIN_BATCH, steps=DP_STEPS,
+         dtype="float32", backend="nccl", profiled_steps=list(DP_PROFILE),
+         runs={k: dict(loss_at_1=v["losses"][1], loss_at_end=v["losses"][DP_STEPS],
+                       loss_rel_diff_vs_plain=v.get("loss_rel_diff_vs_plain"),
+                       launches=v["launches"], launches_in_trace=v["profiled"],
+                       step_time=v["step"],
+                       device_busy_ms_per_step=v["busy"]["device_busy_ms_per_step"],
+                       device_busy_share=v["busy"]["device_busy_share"])
+               for k, v in runs.items()},
+         busy_overhead_vs_plain={k: runs[k]["busy"]["device_busy_ms_per_step"]
+                                 / runs["plain"]["busy"]["device_busy_ms_per_step"] - 1
+                                 for k in ("pjit", "shard_map")})
+    return {k: dict(launches=v["launches"]) for k, v in runs.items()}
+
+
+def dp_run(torch, rank: int, world: int, group, swap: bool = False) -> dict:
+    """DP_TWO_STEPS pjit steps of SSD300 in f32 (TF32 off) on rows
+    [rank·B/world, (rank+1)·B/world) of the fixed batch of DP_TWO_B,
+    preprocessed to 300² floats (which bypass the augment, as the
+    reference's step takes them: the augment's bf16 resample rounds rows
+    differently at other batch sizes, and its shared draws are held on the
+    CPU) → per-step losses, the final weights and BN statistics, the
+    kernel launches and the step times. `swap` takes the batch's two
+    halves in the other order."""
+    from bdd100k_tpu_torch.configs import TrainConfig, get_config
+    from bdd100k_tpu_torch.data.augment import AugmentConfig, preprocess_eval_batch
+    from bdd100k_tpu_torch.data.pipeline import InMemoryDataset
+    from bdd100k_tpu_torch.data.synthetic import generate_synthetic_scenes
+    from bdd100k_tpu_torch.models.detector import build_detector
+    from bdd100k_tpu_torch.ops import depthwise as dw
+    from bdd100k_tpu_torch.ops import matcher
+    from bdd100k_tpu_torch.parallel import train_step
+    from bdd100k_tpu_torch.utils.device import strict_f32
+
+    b = DP_TWO_B // world
+    frames, *gt = InMemoryDataset(*generate_synthetic_scenes(DP_TWO_B, seed=0),
+                                  max_boxes=100).batch(np.arange(DP_TWO_B))
+    if swap:
+        half = DP_TWO_B // 2
+        frames, *gt = (np.concatenate([a[half:], a[:half]]) for a in (frames, *gt))
+    with torch.no_grad():  # the whole batch on every rank, then its rows
+        images = preprocess_eval_batch(torch.from_numpy(frames).cuda(), 300)
+    batch = [images[rank * b:(rank + 1) * b].contiguous()] + [
+        torch.from_numpy(np.ascontiguousarray(a[rank * b:(rank + 1) * b])).cuda()
+        for a in gt]
+    with strict_f32():
+        bundle = build_detector(get_config(CONFIG), dtype=torch.float32,
+                                device="cuda", seed=0)
+        state = train_step.create_train_state(
+            bundle, TrainConfig(batch_size=DP_TWO_B, warmup_steps=0, total_steps=100))
+        step = train_step.make_train_step(bundle, AugmentConfig(out_size=300),
+                                          device="cuda", group=group)
+        gen = torch.Generator(device="cuda")
+        torch.cuda.synchronize()
+        dw.LAUNCHES.update(depthwise3x3_s1=0, depthwise3x3_s1_fgrad=0)
+        matcher.LAUNCHES["encode_targets"] = 0
+        losses, norms, ms = [], [], []
+        for i in range(DP_TWO_STEPS):
+            gen.manual_seed(100 + i)
+            t0 = time.perf_counter()
+            metrics = step(state, gen, *batch)
+            losses.append(float(metrics["loss"]))  # a sync
+            ms.append((time.perf_counter() - t0) * 1e3)
+            norms.append(float(metrics["grad_norm"]))
+    launches = dict(depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"],
+                    depthwise3x3_s1_fgrad=dw.LAUNCHES["depthwise3x3_s1_fgrad"],
+                    encode_targets=matcher.LAUNCHES["encode_targets"])
+    weights = {k: v.detach().float().cpu().numpy()
+               for k, v in bundle.model.state_dict().items() if v.is_floating_point()}
+    return dict(losses=losses, grad_norms=norms, step_ms=ms, launches=launches,
+                weights=weights)
+
+
+def worker_dp_rank(out_dir: str) -> int:
+    """`--worker dp_rank DIR`: this rank of `dp_two_ranks`, on a gloo group
+    on this card, its result to DIR/rank<r>.npz and its launches as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    dist.init_process_group("gloo", init_method="env://")
+    try:
+        rank = dist.get_rank()
+        r = dp_run(torch, rank, dist.get_world_size(), dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    np.savez(Path(out_dir) / f"rank{rank}.npz", losses=np.asarray(r["losses"]),
+             grad_norms=np.asarray(r["grad_norms"]), step_ms=np.asarray(r["step_ms"]),
+             **{f"w/{k}": v for k, v in r["weights"].items()})
+    print(json.dumps({"launches": r["launches"]}), flush=True)
+    return 0
+
+
+def phase_dp_two_ranks(torch) -> dict:
+    """Two ranks sharing this card over a gloo group (NCCL refuses two ranks
+    on one device; gloo all-reduces CUDA tensors through the host):
+    `make_train_step(group=)` in f32, SSD300, global B=16 split 8/8 (a
+    preprocessed float batch), 3 steps, against one process at B=16 in
+    this process. Both ranks end with the same weights; the first step's
+    loss and grad norm equal the one process's within DP_TWO_LOSS0_RTOL
+    and DP_TWO_NORM0_RTOL, and the later losses and the 3-step weights drift from it no further
+    than the control's bound (DP_TWO_CONTROL, DP_TWO_FLOOR); the kernels
+    launch on
+    each rank. The step time is the host's gloo round trips', not a
+    scaling number."""
+    import shutil
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        init = dp_run(torch, 0, 1, None)  # the weights both start from: seed 0
+        control = dp_run(torch, 0, 1, None, swap=True)
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+    d = RUNS / "dp_two_ranks"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    outs = spawn_ranks(["dp_rank", str(d)], 2, "dp_two_ranks")
+    ranks = [np.load(d / f"rank{r}.npz") for r in range(2)]
+    launches = [worker_report(o)["launches"] for o in outs]
+    for r, lr in enumerate(launches):
+        if {k: v / DP_TWO_STEPS for k, v in lr.items()} != dict(
+                depthwise3x3_s1=18, depthwise3x3_s1_fgrad=9, encode_targets=1):
+            raise AssertionError(f"dp_two_ranks rank {r} launches {lr}")
+    from bdd100k_tpu_torch.configs import get_config
+    from bdd100k_tpu_torch.models.detector import build_detector
+
+    start = {k: v.float().cpu().numpy() for k, v in build_detector(
+        get_config(CONFIG), dtype=torch.float32, device="cpu", seed=0
+    ).model.state_dict().items() if v.is_floating_point()}
+    replica_equal = all(np.array_equal(ranks[0][f"w/{k}"], ranks[1][f"w/{k}"])
+                        for k in init["weights"])
+
+    def drift(weights: dict, losses) -> dict:
+        """How far a run ended from the one process: each loss's relative
+        difference, and the L2 distance of the weights (BatchNorm running
+        statistics left out) over the L2 norm of the one process's update,
+        with the worst tensors by the largest element's difference over
+        the largest element of the update."""
+        dist_sq = upd_sq = 0.0
+        per_tensor = {}
+        for k, one in init["weights"].items():
+            upd = one - start[k]
+            w = weights[k]
+            per_tensor[k] = float(np.abs(w - one).max()) / (float(np.abs(upd).max()) + 1e-30)
+            if not k.endswith(("running_mean", "running_var")):
+                dist_sq += float(np.square(w.astype(np.float64) - one).sum())
+                upd_sq += float(np.square(upd.astype(np.float64)).sum())
+        return dict(loss_rel=[float(abs(a / b - 1)) for a, b in zip(losses, init["losses"])],
+                    update_l2=(dist_sq / upd_sq) ** 0.5,
+                    worst=sorted(per_tensor.items(), key=lambda kv: -kv[1])[:3],
+                    median=float(np.median(list(per_tensor.values()))))
+
+    two = drift({k: ranks[0][f"w/{k}"] for k in init["weights"]}, ranks[0]["losses"])
+    ctl = drift(control["weights"], control["losses"])
+    norm0_rel = abs(float(ranks[0]["grad_norms"][0]) / init["grad_norms"][0] - 1)
+    emit("dp_two_ranks", config=CONFIG, global_batch=DP_TWO_B, steps=DP_TWO_STEPS,
+         backend="gloo", dtype="float32", losses_one_process=init["losses"],
+         losses_two_ranks=ranks[0]["losses"].tolist(),
+         losses_control=control["losses"], grad_norm0_rel_diff=norm0_rel,
+         two_ranks_drift=two,
+         control_drift=ctl, replicas_equal=replica_equal,
+         launches_per_rank=launches,
+         step_ms_one_process=init["step_ms"],
+         step_ms_two_ranks=[ranks[r]["step_ms"].tolist() for r in range(2)])
+    if not replica_equal:
+        raise AssertionError("dp_two_ranks: the ranks' weights differ")
+    within = all(a <= DP_TWO_CONTROL * c + DP_TWO_FLOOR
+                 for a, c in zip(two["loss_rel"] + [two["update_l2"]],
+                                 ctl["loss_rel"] + [ctl["update_l2"]]))
+    if (two["loss_rel"][0] > DP_TWO_LOSS0_RTOL or norm0_rel > DP_TWO_NORM0_RTOL
+            or not within):
+        raise AssertionError(f"dp_two_ranks: two ranks drift {two} from one "
+                             f"process, the control {ctl}")
+    return dict(launches={k: sum(lr[k] for lr in launches) for k in launches[0]})
+
+
+def phase_eval_two_ranks(nproc: int) -> dict:
+    """`python -m bdd100k_tpu_torch.evaluate --multihost` as two ranks on
+    this card (their barriers on gloo; the eval has no collectives), f32,
+    on the 64 committed JPEGs with a --sync_dir: every rank returns the
+    merged mAP@0.5, which must equal the single-process f32 mAP of the
+    JAX fixture exactly; NMS launches on both ranks."""
+    import os
+    import shutil
+
+    sync = RUNS / "eval_sync"
+    shutil.rmtree(sync, ignore_errors=True)
+    want = float(load_fixture()["map50"])
+    t0 = time.perf_counter()
+    outs = spawn_ranks(["module", "bdd100k_tpu_torch.evaluate", "--multihost",
+                        "--synthetic", str(EVAL_SCENES),
+                        "--synthetic_dir", os.path.relpath(SYNTH_DIR),
+                        "--ckpt_dir", str(ARTIFACT), "--dtype", "float32",
+                        "--batch_size", str(EVAL_BATCH),
+                        "--num_workers", str(max(nproc // 2, 1)),
+                        "--sync_dir", str(sync)], 2, "eval_two_ranks")
+    wall = time.perf_counter() - t0
+    reps = [worker_report(o) for o in outs]
+    for r, rep in enumerate(reps):
+        res = rep["result"]
+        if res["mAP"] != want or res["num_images"] != EVAL_SCENES or res["num_hosts"] != 2:
+            raise AssertionError(f"eval_two_ranks rank {r}: {res}, want mAP {want}")
+        if rep["launches"]["greedy_suppress"] < 1 or rep["launches"]["depthwise3x3_s1"] < 9:
+            raise AssertionError(f"eval_two_ranks rank {r} launches {rep['launches']}")
+    emit("eval_two_ranks", map50=reps[0]["result"]["mAP"], want=want,
+         num_images=EVAL_SCENES, launches_per_rank=[r["launches"] for r in reps],
+         wall_s=wall)
+    keys = ("greedy_suppress", "depthwise3x3_s1")
+    return dict(launches={k: sum(r["launches"][k] for r in reps) for k in keys})
+
+
+def run_slice10_phases(torch, dw, matcher, nproc: int) -> dict:
+    out = {"encode_ms": phase_jpeg_encode()}
+    out["synthetic_write"] = phase_synthetic_write(torch, dw, matcher, nproc)
+    out["infer_out_jpeg"] = phase_infer_out_jpeg()
+    out["dp_world1"] = phase_dp_world1(torch, dw, matcher, nproc)
+    out["dp_two_ranks"] = phase_dp_two_ranks(torch)
+    out["eval_two_ranks"] = phase_eval_two_ranks(nproc)
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3203,6 +3719,9 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this check needs one GPU",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--worker"]:  # a rank or subprocess of a phase below
+        kind, rest = sys.argv[2], sys.argv[3:]
+        return {"module": worker_module, "dp_rank": lambda a: worker_dp_rank(*a)}[kind](rest)
     t_start = time.perf_counter()
     PHASE_LOG.parent.mkdir(exist_ok=True)
     PHASE_LOG.write_text("")
@@ -3296,6 +3815,13 @@ def main() -> int:
     # decodes
     int8 = run_int8_phases(torch, infer, nms, dw, nproc, frames)
 
+    # slice 10: the JPEG encoder against the fixture JPEGs, the synthetic
+    # split written and trained from, drawn outputs as JPEGs, the trainer
+    # at a world of one rank on NCCL (both step forms) against the plain
+    # trainer, two ranks over gloo on this card against one process, and
+    # the sharded eval over two ranks
+    s10 = run_slice10_phases(torch, dw, matcher, nproc)
+
     # the kernel table; launches are those of the main paths: SSD300
     # serving 512 requests, eval 2 batches of 32, 40 train steps; YOLO-384
     # serving 512 requests, eval 2 batches of 32 for each of the two
@@ -3312,6 +3838,11 @@ def main() -> int:
            for k in ("greedy_suppress", "depthwise3x3_s1")}
     ydw, ym, yn = yolo["dw"], yolo["matcher"], yolo["nms"]["b8"]
     il = int8["path"]["launches"]
+    s10l = {k: sum(s10[p]["launches"].get(k, 0) for p in ("synthetic_write",
+                   "infer_out_jpeg", "dp_two_ranks", "eval_two_ranks"))
+               + sum(r["launches"].get(k, 0) for r in s10["dp_world1"].values())
+            for k in ("depthwise3x3_s1", "depthwise3x3_s1_fgrad", "encode_targets",
+                      "greedy_suppress")}
 
     def yolo_row(t: dict, shape: str) -> dict:
         return dict(shape=shape, ms=t["ms"], plain_ms=t["plain_ms"],
@@ -3324,7 +3855,8 @@ def main() -> int:
              launches=(launches["greedy_suppress"] + el["greedy_suppress"]
                        + ysl["greedy_suppress"] + yel["greedy_suppress"]
                        + vsl["greedy_suppress"] + vel["greedy_suppress"]
-                       + fl["greedy_suppress"] + il["greedy_suppress"]),
+                       + fl["greedy_suppress"] + il["greedy_suppress"]
+                       + s10l["greedy_suppress"]),
              max_abs_err=nms_t["max_abs_err"],
              ms=nms_t[100]["ms"], plain_ms=nms_t[100]["plain_ms"],
              bound_ms=nms_t[100]["bound_ms"], bound_by=nms_t[100]["bound_by"],
@@ -3342,7 +3874,8 @@ def main() -> int:
              launches=(launches["depthwise3x3_s1"] + el["depthwise3x3_s1"]
                        + tl["depthwise3x3_s1"] + ysl["depthwise3x3_s1"]
                        + yel["depthwise3x3_s1"] + ytl["depthwise3x3_s1"]
-                       + fl["depthwise3x3_s1"] + il["depthwise3x3_s1"]),
+                       + fl["depthwise3x3_s1"] + il["depthwise3x3_s1"]
+                       + s10l["depthwise3x3_s1"]),
              max_abs_err=max(dw_t["max_abs_err"], ydw["max_abs_err"]), ms=dw_t["ms"],
              plain_ms=dw_t["plain_ms"], bound_ms=dw_t["bound_ms"],
              bound_by="bytes", library_ms=dw_t["library_ms"],
@@ -3353,7 +3886,7 @@ def main() -> int:
              source="bdd100k_tpu_torch/csrc/depthwise.cu",
              replaces="bdd100k_tpu/ops/pallas_depthwise.py:242",
              launches=(tl["depthwise3x3_s1_fgrad"] + ytl["depthwise3x3_s1_fgrad"]
-                       + fl["depthwise3x3_s1_fgrad"]),
+                       + fl["depthwise3x3_s1_fgrad"] + s10l["depthwise3x3_s1_fgrad"]),
              max_abs_err=max(bwd_t["max_abs_err"], ydw["dk_max_abs_err"]),
              ms=bwd_t["dk"]["ms"],
              plain_ms=bwd_t["dk"]["plain_ms"], bound_ms=bwd_t["dk"]["bound_ms"],
@@ -3363,7 +3896,8 @@ def main() -> int:
              source="bdd100k_tpu_torch/csrc/matcher.cu",
              replaces="bdd100k_tpu/ops/pallas_matcher.py:202",
              launches=(tl["encode_targets"] + ytl["encode_targets"]
-                       + vtl["encode_targets"] + fl["encode_targets"]),
+                       + vtl["encode_targets"] + fl["encode_targets"]
+                       + s10l["encode_targets"]),
              max_abs_err=max(match_t["max_abs_err"], ym["max_abs_err"],
                              vgg["matcher"]["max_abs_err"]),
              ms=match_t["ms"], plain_ms=match_t["plain_ms"],
@@ -3406,6 +3940,8 @@ def main() -> int:
                        for k, v in int8["path"].items() if k != "launches"},
          int8_conv_sums=int8["conv"],
          png_720p_decode_ms=int8["png"]["decode_ms"],
+         jpeg_encode_720p_q90_ms=s10["encode_ms"],
+         slice10_launches=s10l,
          note="kernel ms (SSD300 shapes): NMS at B=8 C=10 K=100 (one launch a "
               "call); depthwise forward summed over the 9 stride-1 layers at B=8 "
               "bf16, filter gradient at B=32 bf16; matcher at B=32 M=100 A=8732 "
@@ -3420,7 +3956,11 @@ def main() -> int:
               "files: SSD300 30 steps at 512 yuv420 + 8 at full resolution, "
               "VGG16-SSD512 5 steps, and the exported artifact's eval 2 "
               "batches; int8_static serving (SSD300 64 b1 + 32 b8 requests, "
-              "VGG16-SSD512 8 b32 requests)")
+              "VGG16-SSD512 8 b32 requests); slice 10 (every rank's path): "
+              "SSD300 3 steps at B=8 from the written split, the CLI's 2 "
+              "drawn JPEGs, 8 f32 steps at B=32 for each of the plain, the "
+              "pjit and the shard_map trainer at a world of one, 3 steps on "
+              "each of two gloo ranks, and 1 eval batch on each of two ranks")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

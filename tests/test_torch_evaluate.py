@@ -579,16 +579,21 @@ def test_resolve_wire_matches_reference():
 
 
 def test_ensure_synthetic_dataset_reads_and_never_writes(tmp_path):
+    """A complete split (the committed 64 seed-1 scenes) is read and never
+    rewritten; a short one is generated, as the reference's
+    ensure_synthetic_dataset does, with the reference's bytes."""
+    before = {p: p.stat().st_mtime_ns for p in SYNTH.rglob("*")}
     assert ensure_synthetic_dataset(SYNTH, 64, seed=1, split="val") == LABELS
-    with pytest.raises(FileNotFoundError, match="synth_val_seed1"):
-        ensure_synthetic_dataset(SYNTH, 65, seed=1, split="val")
-    with pytest.raises(FileNotFoundError, match="cannot be read"):
-        ensure_synthetic_dataset(tmp_path, 4, split="val")
+    assert {p: p.stat().st_mtime_ns for p in SYNTH.rglob("*")} == before
     (tmp_path / "labels").mkdir()
-    (tmp_path / "labels" / "val.json").write_text(LABELS.read_text())
-    with pytest.raises(FileNotFoundError, match="64 JPEGs are missing"):
-        ensure_synthetic_dataset(tmp_path, 64, split="val")
-    assert sorted(p.name for p in tmp_path.rglob("*")) == ["labels", "val.json"]
+    (tmp_path / "labels" / "val.json").write_text(
+        json.dumps(json.loads(LABELS.read_text())[:3]))
+    labels = ensure_synthetic_dataset(tmp_path, 4, seed=1, split="val")
+    assert labels.read_bytes() == json.dumps(
+        json.loads(LABELS.read_text())[:4]).encode()
+    for r in json.loads(labels.read_text()):
+        assert (tmp_path / "images" / "val" / r["name"]).read_bytes() == (
+            IMAGES / r["name"]).read_bytes()
 
 
 def test_committed_jpegs_equal_a_fresh_reference_generation(tmp_path):
@@ -880,7 +885,8 @@ def test_evaluate_cli_on_the_cpu(tmp_path):
 def test_evaluate_cli_needs_cuda_unless_asked_for_the_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        port_eval.main(["--synthetic", "4", "--ckpt_dir", str(ARTIFACT)])
+        port_eval.main(["--synthetic", "4", "--synthetic_dir", str(SYNTH),
+                        "--ckpt_dir", str(ARTIFACT)])
 
 
 @pytest.mark.parametrize("argv,calibrated", [
@@ -893,7 +899,8 @@ def test_evaluate_cli_runs_int8(tmp_path, argv, calibrated):
     records the protocol in the result JSON."""
     out = tmp_path / "result.json"
     result = port_eval.main(argv + [
-        "--synthetic", "10", "--ckpt_dir", str(ARTIFACT), "--batch_size", "8",
+        "--synthetic", "10", "--synthetic_dir", str(SYNTH),
+        "--ckpt_dir", str(ARTIFACT), "--batch_size", "8",
         "--device", "cpu", "--num_workers", "2", "--out", str(out)])
     saved = json.loads(out.read_text())
     assert result["num_images"] == saved["num_images"] == 10
@@ -905,14 +912,38 @@ def test_evaluate_cli_runs_int8(tmp_path, argv, calibrated):
         assert saved["calib_source"] == "eval-set head"
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["--multihost"], "item 11"),
-    (["--mesh_data", "2"], "item 11"),
-    (["--sync_dir", "sync"], "item 11"),
+@pytest.mark.parametrize("argv,refusal", [
+    (["--multihost"], None),
+    (["--mesh_data", "2"], "must equal the world size"),
+    (["--sync_dir", "sync"], None),
+    (["--mesh_data", "1"], None),
+    (["--multihost", "--sync_dir", "sync", "--mesh_data", "1"], None),
 ])
-def test_evaluate_cli_refuses_flags_of_later_slices(argv, item):
-    with pytest.raises(SystemExit, match=item):
-        port_eval.main(argv + ["--synthetic", "4", "--device", "cpu"])
+def test_evaluate_cli_refuses_flags_of_later_slices(tmp_path, monkeypatch, argv,
+                                                    refusal):
+    """Evaluate has no flag of a later slice left: item 11's run, a world of
+    one rank evaluating as one process (as the reference's does), and
+    only a --mesh_data other than the world size is refused, as the
+    reference's mesh refuses to need more devices than it has."""
+    monkeypatch.chdir(tmp_path)
+    argv = argv + ["--synthetic", "4", "--synthetic_dir", str(SYNTH),
+                   "--ckpt_dir", str(ARTIFACT), "--batch_size", "4",
+                   "--num_workers", "2", "--device", "cpu"]
+    if refusal is not None:
+        with pytest.raises(SystemExit, match=refusal):
+            port_eval.main(argv)
+        return
+    if "--multihost" in argv:
+        import socket
+
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        for k, v in (("MASTER_ADDR", "localhost"), ("MASTER_PORT", str(port)),
+                     ("WORLD_SIZE", "1"), ("RANK", "0"), ("LOCAL_RANK", "0")):
+            monkeypatch.setenv(k, v)
+    result = port_eval.main(argv)
+    assert result["num_images"] == 4 and 0.0 < result["mAP"] <= 1.0
 
 
 @pytest.fixture(scope="module")

@@ -21,7 +21,8 @@
   count above --score_threshold 0.4; scores and corners within one step of
   the printed third decimal, measured equal); `--video` exits non-zero
   with its reason; a JPEG that fails to decode on the producer thread
-  exits non-zero; `--out_dir` writes `det_<stem>.png`;
+  exits non-zero; `--out_dir` writes `det_<name>` in the input's format,
+  a JPEG as PIL's quality-75 save of the drawn frame, byte for byte;
 * int8 and PNG input: `--quant int8_static --calib_images
   tests/fixtures/calib_mixed` (two JPEGs and three PNGs: palette, RGBA and
   16-bit grey) over 8 JPEGs, `--quant int8` on one PNG at full
@@ -399,11 +400,34 @@ def test_cli_dir_sweep_matches_the_reference_lines(eight_jpegs):
                                              "yuv420"), names)
 
 
-def test_cli_single_image_matches_the_reference_lines(tmp_path):
+def _keep_drawn(monkeypatch) -> dict:
+    """{file name: drawn frame} of every output `--out_dir` writes."""
+    drawn = {}
+    real = port_infer.write_drawn
+
+    def keep(path, image):
+        drawn[path.name] = image.copy()
+        real(path, image)
+
+    monkeypatch.setattr(port_infer, "write_drawn", keep)
+    return drawn
+
+
+def _pil_jpeg(image: np.ndarray) -> bytes:
+    from PIL import Image
+
+    buf = io.BytesIO()
+    Image.fromarray(image).save(buf, format="JPEG")  # PIL's default quality
+    return buf.getvalue()
+
+
+def test_cli_single_image_matches_the_reference_lines(tmp_path, monkeypatch):
     """`--image` decodes at full resolution and resizes on the device; its
-    lines equal the reference CLI's, and --out_dir writes det_<stem>.png."""
+    lines equal the reference CLI's, and --out_dir writes det_<name>, the
+    bytes of PIL's save of the drawn frame."""
     ref = json.loads(CLI_FIXTURE.read_text())
     image = _jpegs()[0]
+    drawn = _keep_drawn(monkeypatch)
     out = _cli(["--config", "ssd_mobilenet_300",
                 "--ckpt_dir", str(CONFIGS["ssd_mobilenet_300"]),
                 "--image", str(image), "--device", "cpu", "--dtype", "float32",
@@ -412,23 +436,25 @@ def test_cli_single_image_matches_the_reference_lines(tmp_path):
     assert_lines_agree(port_infer.parse_detection_lines(out),
                        _reference_lines(ref, "single", "ssd_mobilenet_300"),
                        [image.name])
-    from PIL import Image
+    name = f"det_{image.name}"
+    assert drawn[name].shape == (720, 1280, 3)
+    assert (tmp_path / name).read_bytes() == _pil_jpeg(drawn[name])
 
-    with Image.open(tmp_path / f"det_{image.stem}.png") as im:
-        assert im.size == (1280, 720)
 
-
-def test_cli_out_dir_writes_a_png_per_image(eight_jpegs, tmp_path):
+def test_cli_out_dir_writes_a_png_per_image(eight_jpegs, tmp_path, monkeypatch):
+    """The directory sweep writes det_<name> for each input, a JPEG here:
+    PIL's quality-75 save of the frame drawn on the decode at model size."""
+    drawn = _keep_drawn(monkeypatch)
     out = _cli(["--config", "ssd_mobilenet_300",
                 "--ckpt_dir", str(CONFIGS["ssd_mobilenet_300"]),
                 "--image_dir", str(eight_jpegs), "--batch_size", "8",
                 "--device", "cpu", "--out_dir", str(tmp_path)])
     assert "8 images in" in out
-    from PIL import Image
-
-    for p in _jpegs()[:CPU_IMAGES]:
-        with Image.open(tmp_path / f"det_{p.stem}.png") as im:
-            assert im.size == (300, 300)  # drawn on the decode at model size
+    names = [f"det_{p.name}" for p in _jpegs()[:CPU_IMAGES]]
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted(names)
+    for name in names:
+        assert drawn[name].shape == (300, 300, 3)
+        assert (tmp_path / name).read_bytes() == _pil_jpeg(drawn[name])
 
 
 def test_cli_needs_cuda_unless_asked_for_the_cpu(monkeypatch):

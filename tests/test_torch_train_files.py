@@ -175,17 +175,47 @@ def test_train_main_at_full_resolution_on_the_rgb_wire(tmp_path, capsys):
     assert "wire format: rgb" in out and "done at step 1" in out
 
 
+def _one_rank_env(monkeypatch) -> None:
+    """The environment torchrun gives a world of one rank."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    for k, v in (("MASTER_ADDR", "localhost"), ("MASTER_PORT", str(port)),
+                 ("WORLD_SIZE", "1"), ("RANK", "0"), ("LOCAL_RANK", "0")):
+        monkeypatch.setenv(k, v)
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--records_dir", "shards"], "item 12"),
     (["--grain_workers", "2"], "item 12"),
-    (["--multihost"], "item 11"),
-    (["--mesh_data", "2"], "item 11"),
-    (["--step_impl", "shard_map"], "item 11"),
+    (["--multihost"], None),
+    (["--mesh_data", "1"], None),
+    (["--step_impl", "shard_map"], None),
+    (["--multihost", "--step_impl", "shard_map"], None),
+    (["--synthetic", "4"], None),
 ])
-def test_train_refuses_flags_of_later_slices(tmp_path, flags, item):
-    with pytest.raises(SystemExit, match=item):
-        port_train.main(_files_argv(tmp_path, *flags))
-    assert not (tmp_path / "train.jsonl").exists()
+def test_train_refuses_flags_of_later_slices(tmp_path, monkeypatch, flags, item):
+    """Only item 12's flags (record shards) are refused; item 11's
+    (--multihost, --mesh_data, --step_impl: data parallelism) and item 14's
+    (--synthetic without --synthetic_dir: the split written to the
+    temporary directory) run."""
+    if item is not None:
+        with pytest.raises(SystemExit, match=item):
+            port_train.main(_files_argv(tmp_path, *flags))
+        assert not (tmp_path / "train.jsonl").exists()
+        return
+    import tempfile
+
+    _one_rank_env(monkeypatch)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path / "tmp"))
+    (tmp_path / "tmp").mkdir()
+    port_train.main(_files_argv(tmp_path / "run", *flags))
+    assert sorted(_log(tmp_path / "run")) == [1, 2]
+    if "--synthetic" in flags:
+        assert len(list((tmp_path / "tmp" / "bdd_synth" / "images" / "train")
+                        .glob("*.jpg"))) == 4
 
 
 def test_train_needs_a_data_source(tmp_path):
@@ -208,6 +238,9 @@ def _train_split(tmp_path: Path, n: int) -> Path:
 
 
 def test_train_synthetic_dir_reads_the_split(tmp_path, capsys):
+    """A complete split is read as it is; a short one is generated in
+    place (the reference's ensure_synthetic_dataset), and a JPEG the
+    labels name but the directory lacks fails the loader."""
     d = _train_split(tmp_path, 12)
     argv = ["--config", "ssd_tiny_64", "--synthetic", "8", "--synthetic_dir",
             str(d), "--decode_size", "64", "--batch_size", "4",
@@ -217,12 +250,15 @@ def test_train_synthetic_dir_reads_the_split(tmp_path, capsys):
     port_train.main(argv)
     out = capsys.readouterr().out
     assert "dataset: 8 images" in out and "wire format: yuv420" in out
-    # more scenes than the split holds, or a JPEG missing: refused
-    with pytest.raises(FileNotFoundError, match="no complete synthetic 'train'"):
-        port_train.main(argv[:2] + ["--synthetic", "13"] + argv[4:])
-    next((d / "images" / "train").iterdir()).unlink()
-    with pytest.raises(FileNotFoundError, match="JPEGs are missing"):
-        port_train.main(argv)
+    assert not list((d / "images" / "train").glob("synthetic_train_*"))
+    # more scenes than the split holds: the seed-0 split is written
+    port_train.main(argv[:2] + ["--synthetic", "13"] + argv[4:] + ["--no_resume"])
+    assert "dataset: 13 images" in capsys.readouterr().out
+    names = [r["name"] for r in json.loads((d / "labels" / "train.json").read_text())]
+    assert names == [f"synthetic_train_{i:05d}.jpg" for i in range(13)]
+    (d / "images" / "train" / names[0]).unlink()
+    with pytest.raises(RuntimeError, match="input pipeline"):
+        port_train.main(argv + ["--no_resume"])
 
 
 def test_train_profile_steps_writes_a_trace(tmp_path, capsys):
