@@ -3,7 +3,10 @@ bdd100k_tpu/ops/pallas_depthwise.py::depthwise_conv3x3).
 
 Stride 1 — nine of MobileNet's thirteen depthwise layers — runs the
 hand-written CUDA kernels of `csrc/depthwise.cu` for a CUDA tensor and the
-plain versions below for a CPU tensor; there is no other route. Stride 2
+plain versions below for a CPU tensor; there is no other route. The
+forward is the op `bdd100k_tpu_torch::depthwise3x3_s1` (`torch.library`,
+so an exported program calls it by name); the layers call it directly at
+inference and through `DepthwiseS1` when a gradient is wanted. Stride 2
 stays a grouped `F.conv2d` with flax's asymmetric SAME pad, as the
 reference keeps XLA for it.
 
@@ -324,25 +327,39 @@ def depthwise3x3_s1_fgrad_cuda(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor
     return dk
 
 
-def _route(x: torch.Tensor, cuda_fn, plain_fn, *args):
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
-    if x.is_cuda:
-        return cuda_fn(x, *args)
-    if x.device.type != "cpu":
-        raise ValueError(f"no depthwise route for device {x.device}")
-    return plain_fn(x, *args)
+# The op the paths call, registered with the dispatcher (not
+# `torch.library.custom_op`, whose first call imports TorchDynamo, ~1.5 s a
+# process, and whose calls cost ~15 µs more of host time than this one's).
+# Both implementations take x in whatever layout it comes (an exported
+# graph need not keep the strides it was traced with); the kernel's makes
+# it contiguous, which is free when it already is.
+_LIB = torch.library.Library("bdd100k_tpu_torch", "FRAGMENT")
+_LIB.define("depthwise3x3_s1(Tensor x, Tensor k) -> Tensor")
+_LIB.impl("depthwise3x3_s1", depthwise3x3_s1_plain, "CPU")
+_LIB.impl("depthwise3x3_s1",
+          lambda x, k: depthwise3x3_s1_cuda(x.contiguous(), k.contiguous()), "CUDA")
+
+
+@torch.library.register_fake("bdd100k_tpu_torch::depthwise3x3_s1", lib=_LIB)
+def _(x, k):
+    return torch.empty(x.shape, dtype=x.dtype, device=x.device)
 
 
 def depthwise3x3_s1(x: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
-    """Stride-1 route: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
-    return _route(x, depthwise3x3_s1_cuda, depthwise3x3_s1_plain, k)
+    """Stride-1 forward through the op `bdd100k_tpu_torch::depthwise3x3_s1`
+    (one node of an exported graph): the CUDA kernel for CUDA tensors, the
+    plain version for CPU tensors; no other device has an implementation."""
+    return torch.ops.bdd100k_tpu_torch.depthwise3x3_s1(x, k)
 
 
 def depthwise3x3_s1_fgrad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     """Filter-gradient route: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
-    return _route(x, depthwise3x3_s1_fgrad_cuda, depthwise3x3_s1_fgrad_plain, g)
+    if x.is_cuda:
+        return depthwise3x3_s1_fgrad_cuda(x, g)
+    if x.device.type != "cpu":
+        raise ValueError(f"no depthwise route for device {x.device}")
+    return depthwise3x3_s1_fgrad_plain(x, g)
 
 
 class DepthwiseS1(torch.autograd.Function):
@@ -405,8 +422,10 @@ def depthwise_conv3x3(
     grouped `F.conv2d`, which autograd differentiates."""
     c = x.shape[-1]
     if tuple(strides) == (1, 1):
-        return DepthwiseS1.apply(
-            x.contiguous(), kernel.reshape(3, 3, c).contiguous())
+        k = kernel.reshape(3, 3, c).contiguous()
+        if torch.is_grad_enabled() and (x.requires_grad or k.requires_grad):
+            return DepthwiseS1.apply(x.contiguous(), k)
+        return depthwise3x3_s1(x.contiguous(), k)
     if strides[0] != strides[1]:
         raise ValueError(f"unequal strides {strides} are not supported")
     y = conv2d_same(

@@ -6,8 +6,10 @@ Candidates are ordered by (score desc, anchor index asc) — the order the
 reference's `lax.top_k` and `_reorder_tied_runs` produce — through stable
 sorts, so keep decisions and slots match the reference's bit for bit.
 
-The greedy suppression runs the hand-written CUDA kernel `csrc/nms.cu` on
-CUDA tensors and the plain greedy on CPU tensors. The kernel replaces
+The greedy suppression is the op `bdd100k_tpu_torch::greedy_suppress`
+(`torch.library`, so an exported program calls it by name): the
+hand-written CUDA kernel `csrc/nms.cu` on CUDA tensors, the plain greedy
+on CPU tensors. The kernel replaces
 bdd100k_tpu/ops/pallas_nms.py::pallas_greedy_suppress. Its bound on the
 card is tiny either way — the K(K−1)/2 IoUs of a row are ~14 f32 ops each
 and a candidate is 18 bytes, ~0.1 µs of work for B=8, C=10, K=100 — so
@@ -110,16 +112,29 @@ def greedy_suppress_cuda(
     return keep
 
 
+# The op the paths call, registered with the dispatcher (not
+# `torch.library.custom_op`, whose first call imports TorchDynamo, ~1.5 s a
+# process, and whose calls cost ~15 µs more of host time than this one's)
+_LIB = torch.library.Library("bdd100k_tpu_torch", "FRAGMENT")
+_LIB.define("greedy_suppress(Tensor boxes, Tensor valid, float iou_threshold)"
+            " -> Tensor")
+_LIB.impl("greedy_suppress", greedy_keep_mask, "CPU")
+_LIB.impl("greedy_suppress", greedy_suppress_cuda, "CUDA")
+
+
+@torch.library.register_fake("bdd100k_tpu_torch::greedy_suppress", lib=_LIB)
+def _(boxes, valid, iou_threshold):
+    return valid.new_empty(valid.shape)
+
+
 def greedy_suppress(
     boxes: torch.Tensor, valid: torch.Tensor, iou_threshold: float = 0.45
 ) -> torch.Tensor:
-    """Batched keep mask: the CUDA kernel for CUDA tensors, the plain
-    greedy for CPU tensors."""
-    if boxes.is_cuda:
-        return greedy_suppress_cuda(boxes, valid, iou_threshold)
-    if boxes.device.type != "cpu":
-        raise ValueError(f"no NMS route for device {boxes.device}")
-    return greedy_keep_mask(boxes, valid, iou_threshold)
+    """Batched keep mask through the op `bdd100k_tpu_torch::greedy_suppress`
+    (one node of an exported graph): the CUDA kernel for CUDA tensors, the
+    plain greedy for CPU tensors; no other device has an implementation."""
+    return torch.ops.bdd100k_tpu_torch.greedy_suppress(boxes, valid,
+                                                       float(iou_threshold))
 
 
 def _sorted_desc(scores: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

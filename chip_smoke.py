@@ -53,8 +53,19 @@ with the bytes of PIL's save of the reference's detections drawn, the
 trainer under --multihost at a world of one rank on NCCL for both step
 forms against the plain trainer (losses within 1e-6 in f32), two ranks on
 this card over gloo against one process, and the eval over two ranks,
-its merged mAP the single-process one. Phases that need other processes
-run this file again as `--worker`.
+its merged mAP the single-process one. Then slice 11: the host cost of
+calling each kernel through its `torch.library` op against its ctypes
+wrapper; `python -m bdd100k_tpu_torch.export` of SSD300 (f32 and bf16,
+for cuda and cpu), the f32 artifact loaded on the card against the
+in-process f32 Predictor on the 64 JPEGs (the kernels' launches counted
+over the artifact's runs), the bf16 artifacts served at b1 and b8 beside
+the Predictor, the f32 artifact loaded on the CPU against the CPU
+Predictor; `python -m bdd100k_tpu_torch.scripts.check_export_parity` on
+an int8_static artifact calibrated on tests/fixtures/calib_mixed
+(PARITY OK); and `parallel/spatial.py` (one frame's convs over tiles,
+halos exchanged by hand) on two gloo ranks sharing this card and at a
+world of one on NCCL, against the single-process Predictor at b1.
+Phases that need other processes run this file again as `--worker`.
 Each path is checked to have run through its kernels and to give the
 right output. NMS and the matcher are also held bit-equal at the edges of
 what they take (K from 1 to 256, greedy-trap chains; zero-area and
@@ -3712,6 +3723,346 @@ def run_slice10_phases(torch, dw, matcher, nproc: int) -> dict:
     return out
 
 
+# ------------------------------------------------------------------ slice 11
+
+EXPORT_DIR = RUNS / "export"
+EXPORT_ARTIFACTS = (("float32", 8), ("bfloat16", 8), ("bfloat16", 1))
+EXPORT_TOL = 1e-5         # the f32 artifact against the in-process f32 Predictor
+SPATIAL_FRAMES = 8        # spatial_ranks: batch-1 frames, each split over the ranks
+# spatial_ranks: one frame's convs over tiles against the whole frame, f32
+# with TF32 off: cuDNN may sum a tile's conv in another order than the
+# whole map's, so scores and corners move by float noise, far below this
+SPATIAL_TOL = 1e-4
+DET_FIELDS = ("boxes", "scores", "classes", "valid")
+
+
+def det_numpy(det) -> dict:
+    """Detections (an artifact's dict of tensors, or a `Detections` of
+    tensors or of numpy arrays) → {field: numpy array}."""
+    out = {}
+    for k in DET_FIELDS:
+        v = det[k] if isinstance(det, dict) else getattr(det, k)
+        out[k] = v.cpu().numpy() if hasattr(v, "cpu") else np.asarray(v)
+    return out
+
+
+def det_concat(dets: list[dict]) -> dict:
+    return {k: np.concatenate([d[k] for d in dets]) for k in DET_FIELDS}
+
+
+def det_compare(got: dict, want: dict, tol: float) -> dict:
+    """Two detection sets of the same images → the largest |Δ| of each
+    field, the slots whose class or validity differ, and whether they
+    agree: slot by slot (classes and valid equal, floats within `tol`),
+    or else detection by detection — as many valid detections an image,
+    each with one of its class on the other side within `tol` — where two
+    scores within `tol` of each other may have swapped slots."""
+    diff = {k: float(np.abs(got[k].astype(np.float64) - want[k]).max())
+            for k in DET_FIELDS}
+    slots = int(((got["classes"] != want["classes"])
+                 | (got["valid"] != want["valid"])).sum())
+    out = dict(max_abs_diff=diff, slots_differing=slots,
+               bit_equal=all(np.array_equal(got[k], want[k]) for k in DET_FIELDS))
+    if slots == 0 and diff["scores"] <= tol and diff["boxes"] <= tol:
+        return dict(out, agree=True)
+    ok = True
+    for i in range(len(got["valid"])):
+        if got["valid"][i].sum() != want["valid"][i].sum():
+            ok = False
+            break
+        for a, b in ((got, want), (want, got)):
+            for j in np.flatnonzero(a["valid"][i]):
+                m = ((b["classes"][i] == a["classes"][i, j]) & b["valid"][i]
+                     & (np.abs(b["boxes"][i] - a["boxes"][i, j]).max(-1) <= tol)
+                     & (np.abs(b["scores"][i] - a["scores"][i, j]) <= tol))
+                ok = ok and bool(m.any())
+    return dict(out, agree=ok)
+
+
+def serve_stats(torch, call, frames: np.ndarray, bs: int) -> dict:
+    """SERVE_REQUESTS requests of `bs` frames each through `call` (host
+    frames in, host detections out) after SERVE_WARMUP → latency stats."""
+    reqs = [np.take(frames, range(bs * r, bs * r + bs), axis=0, mode="wrap")
+            for r in range(SERVE_REQUESTS + SERVE_WARMUP)]
+    for r in reqs[:SERVE_WARMUP]:
+        call(r)
+    torch.cuda.synchronize()
+    lat = []
+    for r in reqs[SERVE_WARMUP:]:
+        t0 = time.perf_counter()
+        call(r)
+        lat.append((time.perf_counter() - t0) * 1e3)
+    return latency_stats(lat, [t / 1e3 for t in lat], bs)
+
+
+def artifact_call(torch, fn):
+    """Host frames → the artifact on the card → host detections: the
+    request a server of the artifact makes (pinned copy in, copy back)."""
+    def call(frames: np.ndarray) -> dict:
+        x = torch.from_numpy(frames).pin_memory().cuda(non_blocking=True)
+        return det_numpy(fn(x))
+    return call
+
+
+def phase_export_artifact(torch, infer, nms, dw, nproc: int) -> dict:
+    """`python -m bdd100k_tpu_torch.export` of SSD300 from the synth9k
+    artifact for `cuda,cpu` (f32 B=8, bf16 B=8 and B=1), `load` on the
+    card: the f32 artifact's detections on the 64 seed-1 JPEGs (the pool's
+    300² decodes) against the in-process f32 Predictor's, with the kernels'
+    launches counted over the artifact's runs (the artifact ran the ops'
+    CUDA implementations, not their plain versions); the bf16 artifacts
+    served at b1 and b8 beside the bf16 Predictor; the f32 artifact loaded
+    on the CPU against the CPU Predictor on 8 frames, bit for bit."""
+    from bdd100k_tpu_torch import export
+
+    EXPORT_DIR.mkdir(parents=True, exist_ok=True)
+    frames = decode_jpegs(jpeg_names(), 300, nproc)
+    paths, export_s = {}, {}
+    for dtype, bs in EXPORT_ARTIFACTS:
+        p = EXPORT_DIR / f"{CONFIG}_{dtype}_b{bs}.pt2"
+        t0 = time.perf_counter()
+        export.main(["--config", CONFIG, "--ckpt_dir", str(ARTIFACT), "--out",
+                     str(p), "--batch_size", str(bs), "--dtype", dtype,
+                     "--platforms", "cuda,cpu"])
+        export_s[f"{dtype}_b{bs}"] = time.perf_counter() - t0
+        paths[(dtype, bs)] = p
+    sizes_mb = {f"{d}_b{b}": p.stat().st_size / 1e6 for (d, b), p in paths.items()}
+
+    # the in-process models first: their launches are not the artifact's
+    pred32 = infer.load_predictor(CONFIG, ARTIFACT, batch_size=8, device="cuda",
+                                  dtype=torch.float32)
+    want = det_concat([det_numpy(pred32(frames[i:i + 8]))
+                       for i in range(0, len(frames), 8)])
+    pred_serve = {bs: serve_stats(torch, infer.load_predictor(
+        CONFIG, ARTIFACT, batch_size=bs, device="cuda"), frames, bs) for bs in (1, 8)}
+    t0 = time.perf_counter()
+    arts = {k: export.load(p, device="cuda") for k, p in paths.items()}
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    # the artifact's path: counts to 0 just before, read just after
+    nms.LAUNCHES["greedy_suppress"] = 0
+    dw.LAUNCHES["depthwise3x3_s1"] = 0
+    got = det_concat([artifact_call(torch, arts[("float32", 8)])(frames[i:i + 8])
+                      for i in range(0, len(frames), 8)])
+    art_serve = {bs: serve_stats(torch, artifact_call(torch, arts[("bfloat16", bs)]),
+                                 frames, bs) for bs in (1, 8)}
+    launches = dict(greedy_suppress=nms.LAUNCHES["greedy_suppress"],
+                    depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"])
+    calls = len(frames) // 8 + 2 * (SERVE_REQUESTS + SERVE_WARMUP)
+    cmp = det_compare(got, want, EXPORT_TOL)
+
+    # the same file on the CPU: the ops' plain versions, no launch
+    art_cpu = export.load(paths[("float32", 8)], device="cpu")
+    pred_cpu = infer.load_predictor(CONFIG, ARTIFACT, batch_size=8, device="cpu",
+                                    dtype=torch.float32)
+    before = dict(nms.LAUNCHES), dict(dw.LAUNCHES)
+    got_cpu = det_numpy(art_cpu(torch.from_numpy(frames[:8])))
+    cpu_launches_unchanged = before == (dict(nms.LAUNCHES), dict(dw.LAUNCHES))
+    cmp_cpu = det_compare(got_cpu, det_numpy(pred_cpu(frames[:8])), 0.0)
+    cmp_card_cpu = det_compare(got_cpu, {k: v[:8] for k, v in got.items()},
+                               EXPORT_TOL)
+    emit("export_artifact", config=CONFIG, weights=ARTIFACT.name,
+         nvidia_smi=nvidia_smi_line(), export_s=export_s, load_s=load_s,
+         size_mb=sizes_mb, launches=launches, artifact_calls=calls,
+         f32_vs_predictor=cmp, cpu_vs_cpu_predictor=cmp_cpu,
+         cpu_vs_card=cmp_card_cpu, cpu_launches_unchanged=cpu_launches_unchanged,
+         frames="64 seed-1 JPEGs, pool decode at 300x300",
+         serve_bf16={f"artifact_b{bs}": art_serve[bs] for bs in (1, 8)}
+         | {f"predictor_b{bs}": pred_serve[bs] for bs in (1, 8)})
+    if launches != dict(greedy_suppress=calls, depthwise3x3_s1=9 * calls):
+        raise AssertionError(f"export_artifact launches {launches} for {calls} calls")
+    if not cmp["agree"] or not got["valid"].any():
+        raise AssertionError(f"export_artifact: the f32 artifact differs from the "
+                             f"Predictor: {cmp}")
+    if not (cmp_cpu["bit_equal"] and cpu_launches_unchanged):
+        raise AssertionError(f"export_artifact on the CPU: {cmp_cpu}, launches "
+                             f"unchanged {cpu_launches_unchanged}")
+    return dict(launches=launches)
+
+
+def phase_export_parity_int8() -> dict:
+    """`python -m bdd100k_tpu_torch.scripts.check_export_parity` on SSD300
+    int8_static calibrated on tests/fixtures/calib_mixed (2 JPEGs, 3
+    PNGs), as a subprocess: it must print PARITY OK."""
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--worker", "module",
+         "bdd100k_tpu_torch.scripts.check_export_parity",
+         "--calib_images", str(CALIB_DIR.relative_to(ROOT)),
+         "--ckpt", str(ARTIFACT.relative_to(ROOT)),
+         "--out", str(EXPORT_DIR / "parity_int8_static.pt2")],
+        cwd=ROOT, capture_output=True, text=True, timeout=WORKER_TIMEOUT)
+    wall = time.perf_counter() - t0
+    (RUNS / "export_parity_int8.txt").write_text(proc.stdout + proc.stderr)
+    if proc.returncode != 0 or "PARITY OK" not in proc.stdout:
+        raise AssertionError(f"check_export_parity exited {proc.returncode}:\n"
+                             f"{(proc.stdout + proc.stderr)[-3000:]}")
+    parity = next(l for l in proc.stdout.splitlines() if l.startswith("PARITY OK"))
+    rep = worker_report(proc.stdout)
+    emit("export_parity_int8", line=parity, launches=rep["launches"], wall_s=wall)
+    return dict(launches=rep["launches"])
+
+
+def spatial_run(torch, frames: np.ndarray, group) -> dict:
+    """SSD300 f32 (TF32 off) from the synth9k artifact, split over the
+    ranks of `group` by `make_spatial_infer_fn`, on each frame at batch 1
+    (one warm-up frame first) → detections, each frame's ms, the launches,
+    the grid and the layers' routes."""
+    from bdd100k_tpu_torch.configs import get_config
+    from bdd100k_tpu_torch.models.detector import build_detector
+    from bdd100k_tpu_torch.ops import depthwise as dw
+    from bdd100k_tpu_torch.ops import nms
+    from bdd100k_tpu_torch.parallel.spatial import make_spatial_infer_fn
+    from bdd100k_tpu_torch.utils.device import strict_f32
+    from bdd100k_tpu_torch.utils.weights import restore_eval_weights
+
+    with strict_f32():
+        bundle = build_detector(get_config(CONFIG), dtype=torch.float32, device="cuda")
+        restore_eval_weights(bundle.model, ARTIFACT, expect_config=CONFIG)
+        fn = make_spatial_infer_fn(bundle, group)
+        x = torch.from_numpy(frames).cuda()
+        fn(fn.tile(x[:1]))
+        torch.cuda.synchronize()
+        nms.LAUNCHES["greedy_suppress"] = 0
+        dw.LAUNCHES["depthwise3x3_s1"] = 0
+        dets, ms = [], []
+        for i in range(len(frames)):
+            t0 = time.perf_counter()
+            dets.append(det_numpy(fn(fn.tile(x[i:i + 1]))))
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return dict(det=det_concat(dets), ms=ms, grid=fn.grid, routes=list(fn.routes),
+                launches=dict(greedy_suppress=nms.LAUNCHES["greedy_suppress"],
+                              depthwise3x3_s1=dw.LAUNCHES["depthwise3x3_s1"]))
+
+
+def worker_spatial_rank(out_dir: str, backend: str) -> int:
+    """`--worker spatial_rank DIR BACKEND`: this rank of `spatial_ranks`
+    on a `BACKEND` group on this card, its detections and frame times to
+    DIR/rank<r>.npz, its launches as JSON."""
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group(backend, init_method="env://")
+    try:
+        rank = dist.get_rank()
+        frames = np.load(Path(out_dir) / "frames.npy")
+        r = spatial_run(torch, frames, dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+    np.savez(Path(out_dir) / f"rank{rank}.npz", ms=np.asarray(r["ms"]),
+             **r["det"])
+    print(json.dumps({"launches": r["launches"], "grid": r["grid"],
+                      "routes": r["routes"]}), flush=True)
+    return 0
+
+
+def phase_spatial_ranks(torch, infer, nproc: int) -> dict:
+    """`parallel/spatial.make_spatial_infer_fn` on SSD300 in f32: two gloo
+    ranks sharing this card (300 rows → two tiles of 150, the halos
+    through the host) and a world of one rank on NCCL, each on
+    SPATIAL_FRAMES frames at batch 1, against the single-process f32
+    Predictor at b1: classes and valid slots equal, scores and corners
+    within SPATIAL_TOL (`det_compare`); every rank the same detections,
+    NMS and the depthwise kernel launched on each. One card measures
+    correctness only: the latency this mode is for needs several."""
+    import shutil
+
+    frames = decode_jpegs(jpeg_names()[:SPATIAL_FRAMES], 300, nproc)
+    pred = infer.load_predictor(CONFIG, ARTIFACT, batch_size=1, device="cuda",
+                                dtype=torch.float32)
+    pred(frames[:1])
+    want, pred_ms = [], []
+    for i in range(len(frames)):
+        t0 = time.perf_counter()
+        want.append(det_numpy(pred(frames[i:i + 1])))
+        pred_ms.append((time.perf_counter() - t0) * 1e3)
+    want = det_concat(want)
+    out, launches = {}, {}
+    for name, world, backend in (("two_gloo_ranks", 2, "gloo"),
+                                 ("world1_nccl", 1, "nccl")):
+        d = RUNS / f"spatial_{name}"
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        np.save(d / "frames.npy", frames)
+        outs = spawn_ranks(["spatial_rank", str(d), backend], world, f"spatial_{name}")
+        reps = [worker_report(o) for o in outs]
+        ranks = [dict(np.load(d / f"rank{r}.npz")) for r in range(world)]
+        same = all(np.array_equal(ranks[r][k], ranks[0][k])
+                   for r in range(world) for k in DET_FIELDS)
+        cmp = det_compare({k: ranks[0][k] for k in DET_FIELDS}, want, SPATIAL_TOL)
+        routes = dict(map(tuple, reps[0]["routes"]))
+        out[name] = dict(backend=backend, world=world, grid=reps[0]["grid"],
+                         vs_predictor=cmp, ranks_equal=same,
+                         launches_per_rank=[r["launches"] for r in reps],
+                         frame_ms_p50=[float(np.median(r["ms"])) for r in ranks],
+                         tiled_layers=sum(v == "tiled" for v in routes.values()),
+                         gathered_at=[k for k, v in routes.items() if v == "gathered"])
+        for k in ("greedy_suppress", "depthwise3x3_s1"):
+            launches[k] = launches.get(k, 0) + sum(r["launches"][k] for r in reps)
+        if not (cmp["agree"] and same):
+            raise AssertionError(f"spatial_ranks {name}: {out[name]}")
+        for r in reps:
+            if r["launches"] != dict(greedy_suppress=SPATIAL_FRAMES,
+                                     depthwise3x3_s1=9 * SPATIAL_FRAMES):
+                raise AssertionError(f"spatial_ranks {name} launches {r['launches']}")
+    emit("spatial_ranks", config=CONFIG, dtype="float32", frames=SPATIAL_FRAMES,
+         tol=SPATIAL_TOL, predictor_b1_ms_p50=float(np.median(pred_ms)),
+         nvidia_smi=nvidia_smi_line(), **out)
+    return dict(launches=launches)
+
+
+OP_CALLS = 2000  # op_dispatch: back-to-back calls a timing
+
+
+def phase_op_dispatch(torch, nms, dw) -> None:
+    """What the `torch.library` ops cost the host: OP_CALLS back-to-back
+    calls of each kernel through its op and through its ctypes wrapper
+    called directly (NMS at B=8 C=10 K=100, the depthwise forward at
+    ds1's b1 shape in bf16), in turns (direct, op, op, direct), host µs a
+    call to the final sync. These kernels take microseconds on the card,
+    so the calls are host-bound and the difference is the op's dispatch.
+    Launches made here compare routes: no path's count includes them."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    xy = torch.rand((8, 10, 100, 2), generator=g, device="cuda") * 0.7
+    boxes = torch.cat([xy, xy + 0.05 + 0.25 * torch.rand(
+        (8, 10, 100, 2), generator=g, device="cuda")], -1).contiguous()
+    valid = torch.rand((8, 10, 100), generator=g, device="cuda") > 0.1
+    x = torch.randn((1, 150, 150, 32), generator=g, device="cuda").to(torch.bfloat16)
+    k = torch.randn((3, 3, 32), generator=g, device="cuda").to(torch.bfloat16)
+    routes = {"nms_direct": lambda: nms.greedy_suppress_cuda(boxes, valid, 0.45),
+              "nms_op": lambda: nms.greedy_suppress(boxes, valid, 0.45),
+              "dw_direct": lambda: dw.depthwise3x3_s1_cuda(x, k),
+              "dw_op": lambda: dw.depthwise3x3_s1(x, k)}
+
+    def host_us(fn) -> float:
+        for _ in range(50):
+            fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(OP_CALLS):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / OP_CALLS * 1e6
+
+    out = {}
+    for kind in ("nms", "dw"):
+        order = ("direct", "op", "op", "direct")
+        times = [host_us(routes[f"{kind}_{o}"]) for o in order]
+        out[kind] = dict(direct_us=[times[0], times[3]], op_us=[times[1], times[2]])
+    if not torch.equal(routes["nms_op"](), routes["nms_direct"]()) or not torch.equal(
+            routes["dw_op"](), routes["dw_direct"]()):
+        raise AssertionError("op_dispatch: an op and its wrapper disagree")
+    emit("op_dispatch", calls=OP_CALLS, nvidia_smi=nvidia_smi_line(), **out)
+
+
+def run_slice11_phases(torch, infer, nms, dw, nproc: int) -> dict:
+    phase_op_dispatch(torch, nms, dw)
+    return {"export_artifact": phase_export_artifact(torch, infer, nms, dw, nproc),
+            "export_parity_int8": phase_export_parity_int8(),
+            "spatial_ranks": phase_spatial_ranks(torch, infer, nproc)}
+
+
 def main() -> int:
     import torch
 
@@ -3721,7 +4072,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--worker"]:  # a rank or subprocess of a phase below
         kind, rest = sys.argv[2], sys.argv[3:]
-        return {"module": worker_module, "dp_rank": lambda a: worker_dp_rank(*a)}[kind](rest)
+        return {"module": worker_module, "dp_rank": lambda a: worker_dp_rank(*a),
+                "spatial_rank": lambda a: worker_spatial_rank(*a)}[kind](rest)
     t_start = time.perf_counter()
     PHASE_LOG.parent.mkdir(exist_ok=True)
     PHASE_LOG.write_text("")
@@ -3822,6 +4174,12 @@ def main() -> int:
     # the sharded eval over two ranks
     s10 = run_slice10_phases(torch, dw, matcher, nproc)
 
+    # slice 11: the serving artifact (export, load on the card and on the
+    # CPU, served beside the Predictor), the int8_static export parity
+    # check, and one frame's convs split over ranks with hand-written halos
+    # (two gloo ranks on this card, a world of one on NCCL)
+    s11 = run_slice11_phases(torch, infer, nms, dw, nproc)
+
     # the kernel table; launches are those of the main paths: SSD300
     # serving 512 requests, eval 2 batches of 32, 40 train steps; YOLO-384
     # serving 512 requests, eval 2 batches of 32 for each of the two
@@ -3843,6 +4201,8 @@ def main() -> int:
                + sum(r["launches"].get(k, 0) for r in s10["dp_world1"].values())
             for k in ("depthwise3x3_s1", "depthwise3x3_s1_fgrad", "encode_targets",
                       "greedy_suppress")}
+    s11l = {k: sum(r["launches"].get(k, 0) for r in s11.values())
+            for k in ("depthwise3x3_s1", "greedy_suppress")}
 
     def yolo_row(t: dict, shape: str) -> dict:
         return dict(shape=shape, ms=t["ms"], plain_ms=t["plain_ms"],
@@ -3856,7 +4216,7 @@ def main() -> int:
                        + ysl["greedy_suppress"] + yel["greedy_suppress"]
                        + vsl["greedy_suppress"] + vel["greedy_suppress"]
                        + fl["greedy_suppress"] + il["greedy_suppress"]
-                       + s10l["greedy_suppress"]),
+                       + s10l["greedy_suppress"] + s11l["greedy_suppress"]),
              max_abs_err=nms_t["max_abs_err"],
              ms=nms_t[100]["ms"], plain_ms=nms_t[100]["plain_ms"],
              bound_ms=nms_t[100]["bound_ms"], bound_by=nms_t[100]["bound_by"],
@@ -3875,7 +4235,7 @@ def main() -> int:
                        + tl["depthwise3x3_s1"] + ysl["depthwise3x3_s1"]
                        + yel["depthwise3x3_s1"] + ytl["depthwise3x3_s1"]
                        + fl["depthwise3x3_s1"] + il["depthwise3x3_s1"]
-                       + s10l["depthwise3x3_s1"]),
+                       + s10l["depthwise3x3_s1"] + s11l["depthwise3x3_s1"]),
              max_abs_err=max(dw_t["max_abs_err"], ydw["max_abs_err"]), ms=dw_t["ms"],
              plain_ms=dw_t["plain_ms"], bound_ms=dw_t["bound_ms"],
              bound_by="bytes", library_ms=dw_t["library_ms"],
@@ -3941,7 +4301,7 @@ def main() -> int:
          int8_conv_sums=int8["conv"],
          png_720p_decode_ms=int8["png"]["decode_ms"],
          jpeg_encode_720p_q90_ms=s10["encode_ms"],
-         slice10_launches=s10l,
+         slice10_launches=s10l, slice11_launches=s11l,
          note="kernel ms (SSD300 shapes): NMS at B=8 C=10 K=100 (one launch a "
               "call); depthwise forward summed over the 9 stride-1 layers at B=8 "
               "bf16, filter gradient at B=32 bf16; matcher at B=32 M=100 A=8732 "
@@ -3960,7 +4320,11 @@ def main() -> int:
               "SSD300 3 steps at B=8 from the written split, the CLI's 2 "
               "drawn JPEGs, 8 f32 steps at B=32 for each of the plain, the "
               "pjit and the shard_map trainer at a world of one, 3 steps on "
-              "each of two gloo ranks, and 1 eval batch on each of two ranks")
+              "each of two gloo ranks, and 1 eval batch on each of two ranks; "
+              "slice 11 (every rank's path): the exported SSD300 artifact's 8 "
+              "f32 b8 calls and 2 x 266 bf16 requests (b1, b8), the int8_static "
+              "parity check's calibration and both its runs, and 8 b1 frames on "
+              "each of two gloo ranks and on a world of one")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(nvidia_smi_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -42,7 +42,10 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
+if str(ROOT / "tests") not in sys.path:
+    sys.path.insert(0, str(ROOT / "tests"))
 
+from torch_ref_pool import ref_pool  # noqa: E402
 from bdd100k_tpu_torch.data import pipeline as port_pipeline  # noqa: E402
 from bdd100k_tpu_torch.data.host_resize import resize_bicubic  # noqa: E402
 from bdd100k_tpu_torch.data.native_decode import NativeDecoder, decode_full  # noqa: E402
@@ -89,8 +92,6 @@ def make_fixture() -> None:
     """Write the JPEGs and the reference's sha256s of their decodes."""
     from PIL import Image
 
-    from bdd100k_tpu.data import native_decode as ref_nd
-
     REPAIRS.mkdir(parents=True, exist_ok=True)
     base = _scene(720, 1280, index=1)
     for name, kw in PROGRESSIVE.items():
@@ -98,7 +99,7 @@ def make_fixture() -> None:
         (REPAIRS / f"{name}.jpg").write_bytes(_encode(img, progressive=True, **kw))
     for h, w in OTHER_SIZES:
         (REPAIRS / f"frame_{w}x{h}.jpg").write_bytes(_encode(_scene(h, w)))
-    ref = ref_nd.NativeDecoder(2)
+    ref = ref_pool().NativeDecoder(2)
     out = {"decode_progressive": {}, "resize_bicubic": {}}
     for name in PROGRESSIVE:
         jpeg = (REPAIRS / f"{name}.jpg").read_bytes()
@@ -190,10 +191,8 @@ def test_fixture_sha256s_are_the_reference_decodes():
     and PIL) on the committed JPEGs."""
     from PIL import Image
 
-    from bdd100k_tpu.data import native_decode as ref_nd
-
     want = json.loads(SHA_JSON.read_text())
-    ref = ref_nd.NativeDecoder(2)
+    ref = ref_pool().NativeDecoder(2)
     for name, rec in want["decode_progressive"].items():
         jpeg = (REPAIRS / f"{name}.jpg").read_bytes()
         assert b"\xff\xc2" in jpeg  # SOF2: progressive
@@ -251,12 +250,10 @@ def pool_sha256s(decoder, jpeg: bytes, gray: bool) -> dict:
 
 
 def test_smoothing_fixture_is_the_reference_pool_s():
-    from bdd100k_tpu.data import native_decode as ref_nd
-
     want = json.loads(SMOOTHING_JSON.read_text())
     cuts = smoothing_cuts()
     assert sorted(want) == sorted(cuts)
-    ref = ref_nd.NativeDecoder(2)
+    ref = ref_pool().NativeDecoder(2)
     for key, jpeg in cuts.items():
         assert not jpeg.endswith(b"\xff\xd9")  # cut before its EOI
         assert pool_sha256s(ref, jpeg, "gray" in key) == want[key], key
@@ -273,9 +270,7 @@ def test_port_smooths_the_cut_files_to_the_fixture_sha256s():
 
 
 def make_smoothing_fixture() -> None:
-    from bdd100k_tpu.data import native_decode as ref_nd
-
-    ref = ref_nd.NativeDecoder(2)
+    ref = ref_pool().NativeDecoder(2)
     out = {key: pool_sha256s(ref, jpeg, "gray" in key)
            for key, jpeg in smoothing_cuts().items()}
     SMOOTHING_JSON.write_text(json.dumps(out, indent=1, sort_keys=True) + "\n")

@@ -46,11 +46,14 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
+if str(ROOT / "tests") not in sys.path:
+    sys.path.insert(0, str(ROOT / "tests"))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from torch_ref_pool import ref_pool  # noqa: E402
 from bdd100k_tpu_torch import evaluate as port_eval  # noqa: E402
 from bdd100k_tpu_torch.configs import get_config, tiny_test_config  # noqa: E402
 from bdd100k_tpu_torch.data import augment as port_augment  # noqa: E402
@@ -91,12 +94,7 @@ def _jpeg_files() -> list[Path]:
 
 
 def _ref_decoder():
-    from bdd100k_tpu.data import native_decode as ref_nd
-
-    if not ref_nd.available():
-        pytest.fail(f"the reference's native decode pool did not build: "
-                    f"{ref_nd._lib_err}")
-    return ref_nd.NativeDecoder(4)
+    return ref_pool().NativeDecoder(4)
 
 
 # ------------------------------------------------------------------ labels
@@ -559,6 +557,7 @@ def test_eval_loader_matches_reference_loader(shuffle, wire):
     kw = dict(shuffle=shuffle, seed=3, num_epochs=1, drop_last=False,
               num_workers=2, wire_format=wire)
     got = list(port_pipeline.make_loader(ds, 4, **kw))
+    ref_pool()
     want = list(ref_loader(ref_ds, 4, native_decode=True, **kw))
     assert len(got) == len(want) == 3
     for g, w in zip(got, want):
@@ -573,6 +572,7 @@ def test_resolve_wire_matches_reference():
     odd = types.SimpleNamespace(decode_size=301)
     none = types.SimpleNamespace(decode_size=None)
     even = types.SimpleNamespace(decode_size=300)
+    ref_pool()  # "auto" asks the reference whether its pool loaded
     for choice, ds in (("auto", None), ("auto", odd), ("auto", none),
                        ("auto", even), ("rgb", even), ("yuv420", None)):
         assert port_pipeline.resolve_wire(choice, ds) == ref_resolve(choice, ds)
@@ -997,7 +997,6 @@ def make_fixture() -> None:
     jax.config.update("jax_platforms", "cpu")
     from bdd100k_tpu.configs.detector_configs import BDD100K_CLASSES
     from bdd100k_tpu.configs.detector_configs import get_config as jax_config
-    from bdd100k_tpu.data import native_decode as ref_nd
     from bdd100k_tpu.data.pipeline import DetectionDataset as RefDataset
     from bdd100k_tpu.data.pipeline import make_loader as ref_loader
     from bdd100k_tpu.evaluate import run_eval as ref_run_eval
@@ -1006,7 +1005,7 @@ def make_fixture() -> None:
     from bdd100k_tpu.parallel.train_step import make_eval_step
     from bdd100k_tpu.utils.weights import load_detector_npz as jax_load_npz
 
-    assert ref_nd.available(), ref_nd._lib_err
+    ref_pool()
     flat_params, flat_stats, meta = jax_load_npz(ARTIFACT)
     params = _flax_tree({k: np.asarray(v, np.float32) for k, v in flat_params.items()})
     stats = _flax_tree({k: np.asarray(v, np.float32) for k, v in flat_stats.items()})

@@ -66,11 +66,14 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
+if str(ROOT / "tests") not in sys.path:
+    sys.path.insert(0, str(ROOT / "tests"))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from torch_ref_pool import ref_pool  # noqa: E402
 from bdd100k_tpu_torch import infer as port_infer  # noqa: E402
 from bdd100k_tpu_torch.configs import tiny_test_config  # noqa: E402
 from bdd100k_tpu_torch.data import pipeline as port_pipeline  # noqa: E402
@@ -152,11 +155,8 @@ def test_host_resize_bit_equal_to_cv2(case):
 
 
 def test_resize_yuv420_batch_equals_the_reference_binding():
-    from bdd100k_tpu.data import native_decode as ref_nd
-
-    assert ref_nd.available(), ref_nd._lib_err
     frames = np.stack([_decoded(i) for i in range(3)])
-    ref, port = ref_nd.NativeDecoder(2), NativeDecoder(2)
+    ref, port = ref_pool().NativeDecoder(2), NativeDecoder(2)
     try:
         for src, size in ((frames, 300), (frames, 512), (frames[:, :-1, :-3], 384)):
             want = ref.resize_yuv420_batch(src, size)

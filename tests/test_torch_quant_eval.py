@@ -245,7 +245,9 @@ def make_fixture() -> None:
     from bdd100k_tpu.parallel import train_step as ref_train_step
     from bdd100k_tpu.utils.weights import load_detector_npz as jax_load_npz
     from test_torch_evaluate import _flax_tree
+    from torch_ref_pool import ref_pool
 
+    ref_pool()  # its run_eval decodes through the reference's pool
     out = {}
     for case, artifact in EVAL_CASES.items():
         config, quant, n = case

@@ -35,11 +35,14 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
+if str(ROOT / "tests") not in sys.path:
+    sys.path.insert(0, str(ROOT / "tests"))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from torch_ref_pool import ref_pool  # noqa: E402
 from bdd100k_tpu_torch import train as port_train  # noqa: E402
 from bdd100k_tpu_torch.configs import tiny_test_config  # noqa: E402
 from bdd100k_tpu_torch.data import pipeline as port_pipeline  # noqa: E402
@@ -84,6 +87,8 @@ def test_train_loader_matches_reference_loader(size, wire):
     assert port_pipeline.resolve_wire("auto", ds) == wire or wire == "rgb"
     kw = dict(shuffle=True, seed=0, num_workers=2, wire_format=wire)
     native = dict(native_decode=size is not None)
+    if size is not None:
+        ref_pool()  # the reference's loader takes its pool, however it was built
     got = port_pipeline.make_loader(ds, batch, **kw)
     want = ref_loader(ref_ds, batch, **native, **kw)
     ref_batches = [next(want) for _ in range(3)]

@@ -45,11 +45,14 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
+if str(ROOT / "tests") not in sys.path:
+    sys.path.insert(0, str(ROOT / "tests"))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from torch_ref_pool import ref_pool  # noqa: E402
 from bdd100k_tpu_torch import train as port_train  # noqa: E402
 from bdd100k_tpu_torch.configs import TrainConfig, get_config  # noqa: E402
 from bdd100k_tpu_torch.data.augment import preprocess_eval_batch  # noqa: E402
@@ -432,6 +435,7 @@ def _make_eval_fixture() -> None:
     from bdd100k_tpu.parallel.train_step import make_eval_step
     from bdd100k_tpu.utils.weights import load_detector_npz as jax_load_npz
 
+    ref_pool()
     flat_params, flat_stats, meta = jax_load_npz(ARTIFACT)
     params = _flax_tree({k: np.asarray(v, np.float32) for k, v in flat_params.items()})
     stats = _flax_tree({k: np.asarray(v, np.float32) for k, v in flat_stats.items()})

@@ -35,11 +35,14 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 if str(ROOT) not in sys.path:
     sys.path.insert(0, str(ROOT))
+if str(ROOT / "tests") not in sys.path:
+    sys.path.insert(0, str(ROOT / "tests"))
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
+from torch_ref_pool import ref_pool  # noqa: E402
 from bdd100k_tpu_torch import evaluate as port_eval  # noqa: E402
 from bdd100k_tpu_torch.configs import apply_yolo_priors, get_config  # noqa: E402
 from bdd100k_tpu_torch.data import pipeline as port_pipeline  # noqa: E402
@@ -202,7 +205,6 @@ def make_fixture() -> None:
     from bdd100k_tpu.configs.detector_configs import BDD100K_CLASSES
     from bdd100k_tpu.configs.detector_configs import apply_yolo_priors as jax_apply
     from bdd100k_tpu.configs.detector_configs import get_config as jax_config
-    from bdd100k_tpu.data import native_decode as ref_nd
     from bdd100k_tpu.data.pipeline import DetectionDataset as RefDataset
     from bdd100k_tpu.data.pipeline import make_loader as ref_loader
     from bdd100k_tpu.evaluate import run_eval as ref_run_eval
@@ -211,7 +213,7 @@ def make_fixture() -> None:
     from bdd100k_tpu.parallel.train_step import make_eval_step
     from bdd100k_tpu.utils.weights import load_detector_npz as jax_load_npz
 
-    assert ref_nd.available(), ref_nd._lib_err
+    ref_pool()
     ds = RefDataset.from_bdd100k(LABELS, IMAGES, max_boxes=100,
                                  decode_size=DECODE_SIZE)
     out, meta = {}, {}
